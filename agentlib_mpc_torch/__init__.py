@@ -1,0 +1,17 @@
+"""agentlib_mpc_torch — the PyTorch/CUDA port of ``agentlib_mpc_tpu``.
+
+The port mirrors the JAX package's layout (``models/``, ``ops/``,
+``parallel/``, ``utils/``) and holds each module against its JAX
+counterpart in the tests. It imports ``torch`` and numpy only, never
+``jax`` and nothing of ``agentlib_mpc_tpu``.
+
+Slice 1 covers the 256-zone consensus-ADMM control step: the model zoo,
+degree-d collocation, the batch-first interior-point solver, the consensus
+update and the two hand-written Hopper kernels of ``ops/kkt.py`` (the
+pivot-free LDLᵀ factor and solve, ``csrc/``).
+
+Entry points run on the card unless the caller asks for the CPU
+(``utils.device.resolve_device``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,270 @@
+"""Batched KKT linear algebra: pivot-free LDLᵀ factor and solve.
+
+Port of ``agentlib_mpc_tpu/ops/kkt.py``. The interior-point solver factors
+one symmetric quasi-definite KKT matrix
+
+    K = [[W, Jgᵀ], [Jg, -δ_c I]],   W ≻ 0 (Levenberg-regularized)
+
+per Newton iteration for every zone of the batch. A quasi-definite matrix
+admits a stable LDLᵀ for any symmetric pivot order (Vanderbei 1995), so no
+pivoting is needed; Jacobi equilibration plus two steps of iterative
+refinement (``resolve_kkt_ldl``) recover the last bits of accuracy in f32.
+
+Kernels. ``ldl_factor`` and ``ldl_solve`` are the wrappers of two
+hand-written CUDA kernels for Hopper (``csrc/ldl_factor.cu``,
+``csrc/ldl_solve.cu``), which replace the Pallas TPU kernels
+``_ldl_factor_kernel`` and ``_ldl_solve_kernel`` of the JAX package. Each
+wrapper runs its kernel on a CUDA tensor (in float32, casting in and out,
+as the TPU path does) or raises; it runs the plain PyTorch version
+(``ldl_factor_plain``/``ldl_solve_plain``, in the input dtype) only because
+the tensor it was given lies on the CPU. Each keeps a launch counter
+(``ldl_factor.launches``, ``ldl_solve.launches``).
+
+Routing. ``resolve_kkt_method("auto", size, device)`` replaces the JAX
+package's eager availability probe with a static size rule: on CUDA,
+"auto" is ``"ldl"`` when an M×M factor fits one block's opt-in shared
+memory (``shared_memory_per_block_optin``), else ``"lu"``; on the CPU it is
+``"lu"``, as the JAX package resolves off a TPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from agentlib_mpc_torch.utils import cuda_build
+
+_TINY = 1e-30
+
+#: block shared memory available without opting in (CUDA's default)
+_DEFAULT_SMEM = 48 * 1024
+
+
+def _safe_d(d: torch.Tensor) -> torch.Tensor:
+    """Clamp a pivot away from zero, preserving sign (0 counts as +)."""
+    tiny = torch.full_like(d, _TINY)
+    return torch.where(d >= 0, torch.maximum(d, tiny), torch.minimum(d, -tiny))
+
+
+# --------------------------------------------------------------------------
+# Plain versions: batch-major, a Python loop over k only
+# --------------------------------------------------------------------------
+
+def ldl_factor_plain(K: torch.Tensor) -> torch.Tensor:
+    """Compact LDLᵀ of (..., M, M) symmetric quasi-definite matrices, in the
+    input dtype (JAX package: ``ldl_factor_ref``). Works on a copy, updated
+    in place step by step."""
+    A = K.clone()
+    M = A.shape[-1]
+    for k in range(M):
+        d = _safe_d(A[..., k, k])
+        l = A[..., k + 1:, k] / d[..., None]
+        # rank-1 update of the trailing block (i > k, j > k); the stored
+        # L columns (j < k) are untouched
+        A[..., k + 1:, k + 1:] -= l[..., :, None] * A[..., k, None, k + 1:]
+        A[..., k + 1:, k] = l
+    return A
+
+
+def ldl_solve_plain(LD: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L D Lᵀ x = b from a compact factor (JAX package:
+    ``ldl_solve_ref``), batched over the leading axes, in the input dtype."""
+    x = b.clone()
+    M = LD.shape[-1]
+    for k in range(M):
+        x[..., k + 1:] -= LD[..., k + 1:, k] * x[..., k, None]
+    x = x / _safe_d(torch.diagonal(LD, dim1=-2, dim2=-1))
+    for k in range(M - 1, -1, -1):
+        x[..., :k] -= LD[..., k, :k] * x[..., k, None]
+    return x
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+#: C signatures of the kernels' entry points (pointers and the stream as
+#: c_void_p, so ctypes never truncates them to 32 bits)
+_SIGNATURES = {
+    "ldl_factor": ("ldl_factor_f32", [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]),
+    "ldl_solve": ("ldl_solve_f32", [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+def _entry(name: str):
+    """The C entry point of kernel ``name``, with argtypes declared."""
+    fn_name, argtypes = _SIGNATURES[name]
+    fn = getattr(cuda_build.load(name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def smem_bytes(M: int) -> int:
+    """Shared memory one block of either kernel needs for an M×M matrix
+    (row stride padded to an odd number of floats, plus one M-vector); the
+    same formula as ``ldl_*_smem_bytes`` in ``csrc/``."""
+    return (M * (M | 1) + M) * 4
+
+
+def _smem_optin(device: torch.device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       _DEFAULT_SMEM))
+
+
+def _check_cuda_input(t: torch.Tensor, name: str, ndim_min: int):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CPU or CUDA tensor, got "
+                         f"{t.device}")
+    if not t.is_floating_point():
+        raise TypeError(f"{name} must be floating point, got {t.dtype}")
+    if t.ndim < ndim_min:
+        raise ValueError(f"{name} must have at least {ndim_min} dims, got "
+                         f"shape {tuple(t.shape)}")
+
+
+def _launch_args(M: int, device: torch.device):
+    if smem_bytes(M) > _smem_optin(device):
+        raise ValueError(
+            f"an {M}x{M} LDLᵀ needs {smem_bytes(M)} bytes of shared memory "
+            f"per block, above this card's {_smem_optin(device)}; use "
+            f"kkt_method='lu' (resolve_kkt_method routes 'auto' there)")
+    return ctypes.c_int(M), ctypes.c_void_p(
+        torch.cuda.current_stream(device).cuda_stream)
+
+
+def ldl_factor(K: torch.Tensor) -> torch.Tensor:
+    """Compact LDLᵀ factor of (..., M, M) symmetric quasi-definite
+    matrices: unit L strictly below the diagonal, D on it. CUDA: the
+    ``csrc/ldl_factor.cu`` kernel in float32; CPU: ``ldl_factor_plain``."""
+    if K.device.type == "cpu":
+        return ldl_factor_plain(K)
+    _check_cuda_input(K, "K", 2)
+    M = K.shape[-1]
+    if K.shape[-2] != M:
+        raise ValueError(f"K must be square, got shape {tuple(K.shape)}")
+    Kf = K.to(torch.float32).reshape(-1, M, M).contiguous()
+    out = torch.empty_like(Kf)
+    B = Kf.shape[0]
+    if B and M:
+        with torch.cuda.device(K.device):
+            m, stream = _launch_args(M, K.device)
+            rc = _entry("ldl_factor")(
+                ctypes.c_void_p(Kf.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_int(B), m, stream)
+        if rc != 0:
+            raise RuntimeError(f"ldl_factor kernel launch failed: CUDA error "
+                               f"{rc}")
+        ldl_factor.launches += 1
+    return out.reshape(K.shape).to(K.dtype)
+
+
+ldl_factor.launches = 0
+
+
+def ldl_solve(LD: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L D Lᵀ x = b from :func:`ldl_factor` output; LD (..., M, M),
+    b (..., M) with the same leading axes. CUDA: the
+    ``csrc/ldl_solve.cu`` kernel in float32; CPU: ``ldl_solve_plain``."""
+    if LD.device.type == "cpu" and b.device.type == "cpu":
+        return ldl_solve_plain(LD, b)
+    _check_cuda_input(LD, "LD", 2)
+    _check_cuda_input(b, "b", 1)
+    M = LD.shape[-1]
+    if LD.device != b.device or LD.shape[-2] != M or \
+            LD.shape[:-1] != b.shape:
+        raise ValueError(f"LD {tuple(LD.shape)} on {LD.device} and b "
+                         f"{tuple(b.shape)} on {b.device} do not match")
+    LDf = LD.to(torch.float32).reshape(-1, M, M).contiguous()
+    bf = b.to(torch.float32).reshape(-1, M).contiguous()
+    out = torch.empty_like(bf)
+    B = bf.shape[0]
+    if B and M:
+        with torch.cuda.device(b.device):
+            m, stream = _launch_args(M, b.device)
+            rc = _entry("ldl_solve")(
+                ctypes.c_void_p(LDf.data_ptr()), ctypes.c_void_p(bf.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), ctypes.c_int(B), m, stream)
+        if rc != 0:
+            raise RuntimeError(f"ldl_solve kernel launch failed: CUDA error "
+                               f"{rc}")
+        ldl_solve.launches += 1
+    return out.reshape(b.shape).to(b.dtype)
+
+
+ldl_solve.launches = 0
+
+
+def reset_launch_counts() -> None:
+    ldl_factor.launches = 0
+    ldl_solve.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Equilibrated factor + refined resolve
+# --------------------------------------------------------------------------
+
+def equilibrate(K: torch.Tensor):
+    """Symmetric Jacobi scaling: keeps a quasi-definite matrix
+    quasi-definite."""
+    scale = 1.0 / torch.sqrt(torch.clamp_min(K.abs().amax(dim=-1), 1e-12))
+    return K * scale[..., :, None] * scale[..., None, :], scale
+
+
+def factor_kkt_ldl(K: torch.Tensor):
+    """Equilibrate + factor once; returns an opaque factor for
+    :func:`resolve_kkt_ldl` (predictor and corrector re-solve with new
+    right-hand sides)."""
+    Ks, scale = equilibrate(K)
+    return (ldl_factor(Ks), Ks, scale)
+
+
+def resolve_kkt_ldl(factor, rhs: torch.Tensor,
+                    refine_steps: int = 2) -> torch.Tensor:
+    """Solve with a stored factor + iterative refinement (f32-safe). The
+    refinement product is a true-f32 matmul (the solver runs with TF32
+    off)."""
+    LD, Ks, scale = factor
+    rs = rhs * scale
+    x = ldl_solve(LD, rs)
+    for _ in range(refine_steps):
+        r = rs - torch.matmul(Ks, x[..., None])[..., 0]
+        x = x + ldl_solve(LD, r)
+    return x * scale
+
+
+def solve_kkt_ldl(K: torch.Tensor, rhs: torch.Tensor,
+                  refine_steps: int = 2) -> torch.Tensor:
+    """Equilibrated LDLᵀ solve with iterative refinement (f32-safe)."""
+    return resolve_kkt_ldl(factor_kkt_ldl(K), rhs, refine_steps)
+
+
+def ldl_fits(size: int, device) -> bool:
+    """Whether the LDLᵀ kernels take a ``size``×``size`` system on
+    ``device``: a CUDA device whose opt-in shared memory per block holds
+    the factor (``smem_bytes(size)``). Never True on the CPU."""
+    dev = torch.device(device)
+    return dev.type == "cuda" and smem_bytes(size) <= _smem_optin(dev)
+
+
+def resolve_kkt_method(method: str, size: int, device) -> str:
+    """Resolve ``SolverOptions.kkt_method`` for a ``size``-dim KKT system on
+    ``device``: "auto" → "ldl" on CUDA when :func:`ldl_fits`, else "lu" (on
+    the CPU always "lu"). "ldl" and "lu" stand as given; forcing "ldl" on
+    the CPU runs the plain versions. "stage" is not ported yet."""
+    if method == "auto":
+        return "ldl" if ldl_fits(size, device) else "lu"
+    if method in ("ldl", "lu"):
+        return method
+    if method == "stage":
+        raise NotImplementedError(
+            "kkt_method='stage' needs ops/stagewise.py, which the port has "
+            "not ported yet (ROADMAP Queue 1: stage-structured path)")
+    raise ValueError(f"kkt_method must be 'auto', 'ldl', 'lu' or 'stage', "
+                     f"got {method!r}")

@@ -1,0 +1,149 @@
+"""The consensus-ADMM control step of the 256-zone benchmark.
+
+Port of ``build_step``/``warm_step`` (``bench.py:229-359``, zone model,
+interior-point inner solver). One control step is ``ADMM_ITERS`` consensus
+iterations; each solves every zone's collocation NLP as one batch
+(``solve_nlp_batched``), then takes the consensus mean of the controls and
+the scaled dual update. The first (cold) iteration gets the full inner
+budget, the warm ones a short budget warm-started in primal, duals and
+barrier. The JAX package runs the iterations in one ``lax.scan``; here it
+is a Python loop over the same per-iteration (budget, mu0) schedule.
+
+The workload constants are copies of ``bench.py``'s (the port imports
+nothing of the JAX package or of ``bench.py``); a test holds them equal.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from agentlib_mpc_torch.models.zoo import ZoneWithSupply
+from agentlib_mpc_torch.ops.admm import _masked_mean
+from agentlib_mpc_torch.ops.solver import (
+    NLPFunctions,
+    SolverOptions,
+    solve_nlp_batched,
+)
+from agentlib_mpc_torch.ops.transcription import transcribe
+from agentlib_mpc_torch.utils.device import resolve_device
+
+# ---- workload constants (bench.py:174-198, 222-226) ---------------------------
+N_AGENTS = 256
+HORIZON = 10
+ADMM_ITERS = 10
+DT = 300.0
+SOLVER_BASE = {"tol": 1e-4, "max_iter": 10, "corrector": True}
+COLD_BUDGET, WARM_BUDGET = 10, 1
+COLD_MU, WARM_MU = 0.1, 1e-2
+ZONE_X0_RANGE = (294.0, 300.0)
+ZONE_LOAD_RANGE = (80.0, 250.0)
+#: exogenous inputs after the load (T_in, T_upper), initial consensus value
+#: and penalty of the zone model (bench.py ``_MODELS["zone"]``)
+ZONE_D_ROW_TAIL = (290.15, 294.15)
+ZONE_ZBAR0 = 0.02
+ZONE_RHO0 = 20.0
+
+
+def fleet_inputs(n_agents: int):
+    """Per-zone initial temperatures and loads (the heterogeneity axis)."""
+    return (np.linspace(*ZONE_X0_RANGE, n_agents),
+            np.linspace(*ZONE_LOAD_RANGE, n_agents))
+
+
+def zone_ocp():
+    """The per-zone OCP (61-variable degree-2 collocation NLP)."""
+    return transcribe(ZoneWithSupply(), ["mDot"], N=HORIZON, dt=DT,
+                      method="collocation", collocation_degree=2)
+
+
+def build_step(n_agents: int = N_AGENTS, solver_overrides: dict | None = None,
+               warm_budget: int = WARM_BUDGET,
+               cold_budget: int = COLD_BUDGET, record_stats: bool = False,
+               device=None, dtype: torch.dtype = torch.float32):
+    """Return ``(step, args)``: ``step(*args)`` runs one control step.
+
+    ``args = (x0s (n, 1), loads (n,), w (n, n_w), y (n, n_g), z (n, n_h),
+    zbar (N, 1), lams (n, N, 1), rho ())``, the positional layout of the
+    JAX package. ``step`` returns the carry ``(w, y, z, zbar, lams)``, or
+    ``(carry, stats)`` with ``record_stats``: ``stats = (primal (I,),
+    dual (I,), iterations (I, n), success (I, n), kkt_error (I, n))``.
+    """
+    dev = resolve_device(device)
+    ocp = zone_ocp()
+    base_opts = dict(SOLVER_BASE)
+    base_opts.update(solver_overrides or {})
+    opts = SolverOptions(**base_opts)
+    budgets = [cold_budget] + [warm_budget] * (ADMM_ITERS - 1)
+    mu0s = [COLD_MU] + [WARM_MU] * (ADMM_ITERS - 1)
+
+    def f_aug(w, theta):
+        ocp_theta, zbar, lam, rho = theta
+        u = ocp.unflatten(w)["u"]
+        return ocp.nlp.f(w, ocp_theta) + \
+            0.5 * rho * ((u - zbar + lam) ** 2).sum()
+
+    nlp = NLPFunctions(f=f_aug, g=lambda w, th: ocp.nlp.g(w, th[0]),
+                       h=lambda w, th: ocp.nlp.h(w, th[0]))
+
+    theta0 = ocp.default_params(device=dev, dtype=dtype)
+
+    def zone_params(x0s, loads):
+        """Batched OCPParams: defaults with per-zone x0 and load row."""
+        n = x0s.shape[0]
+        tail = torch.tensor(ZONE_D_ROW_TAIL, dtype=dtype, device=dev)
+        d_row = torch.cat([loads[:, None], tail.expand(n, 2)], dim=-1)
+        batched = theta0._replace(
+            x0=x0s, d_traj=d_row[:, None, :].expand(n, HORIZON, 3))
+        return batched._replace(**{
+            k: v.expand((n,) + v.shape) for k, v in batched._asdict().items()
+            if k not in ("x0", "d_traj")})
+
+    def control_step(x0s, loads, w_gs, y_gs, z_gs, zbar, lams, rho):
+        n = x0s.shape[0]
+        theta = zone_params(x0s, loads)
+        lb, ub = vmap(ocp.bounds)(theta)
+        rho_b = rho.expand(n)
+        stats = []
+        for budget, mu0 in zip(budgets, mu0s):
+            res = solve_nlp_batched(
+                nlp, w_gs, (theta, zbar.expand((n,) + zbar.shape), lams,
+                            rho_b),
+                lb, ub, opts, y0=y_gs, z0=z_gs, mu0=mu0, max_iter=budget)
+            w_gs, y_gs, z_gs = res.w, res.y, res.z
+            u = ocp.unflatten(w_gs)["u"]                      # (n, N, 1)
+            zbar_new = _masked_mean(u)
+            lams = lams + (u - zbar_new)
+            if record_stats:
+                # Boyd residuals of this iteration
+                stats.append((
+                    torch.linalg.vector_norm(u - zbar_new),
+                    torch.linalg.vector_norm(rho * (zbar_new - zbar)),
+                    res.stats.iterations, res.stats.success,
+                    res.stats.kkt_error))
+            zbar = zbar_new
+        carry = (w_gs, y_gs, z_gs, zbar, lams)
+        if not record_stats:
+            return carry
+        return carry, tuple(torch.stack(col) for col in zip(*stats))
+
+    x0s_np, loads_np = fleet_inputs(n_agents)
+    x0s = torch.as_tensor(x0s_np, dtype=dtype, device=dev).reshape(n_agents, 1)
+    loads = torch.as_tensor(loads_np, dtype=dtype, device=dev)
+    w_gs = ocp.initial_guess(theta0).expand(n_agents, ocp.n_w).clone()
+    y_gs = torch.zeros((n_agents, ocp.n_g), dtype=dtype, device=dev)
+    z_gs = torch.full((n_agents, ocp.n_h), 0.1, dtype=dtype, device=dev)
+    zbar = torch.full((HORIZON, 1), ZONE_ZBAR0, dtype=dtype, device=dev)
+    lams = torch.zeros((n_agents, HORIZON, 1), dtype=dtype, device=dev)
+    rho = torch.tensor(ZONE_RHO0, dtype=dtype, device=dev)
+    args = (x0s, loads, w_gs, y_gs, z_gs, zbar, lams, rho)
+    return control_step, args
+
+
+def warm_step(step, args, out):
+    """Re-invoke the control step warm-started from its own outputs (carry:
+    w, y, z, zbar, lams) with the original problem data (x0s, loads, rho)
+    — the closed-loop steady-state regime."""
+    return step(args[0], args[1], out[0], out[1], out[2], out[3],
+                out[4], args[7])

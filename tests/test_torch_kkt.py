@@ -1,0 +1,194 @@
+"""The port's LDLᵀ KKT algebra (``agentlib_mpc_torch/ops/kkt.py``) against
+the JAX package's (``agentlib_mpc_tpu/ops/kkt.py``).
+
+The plain PyTorch versions are held against the pure-JAX reference in f64
+and against the Pallas TPU kernels run through the Pallas interpreter in
+f32 (the ``tests/test_kkt.py`` pattern). The CUDA kernels are held against
+the plain versions on a card; those tests carry the ``cuda`` marker and
+skip without one.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from agentlib_mpc_tpu.ops import kkt as jkkt
+from agentlib_mpc_torch.ops import kkt
+
+
+def _quasi_definite_batch(B, n, m, seed=0):
+    """Random interior-point-shaped KKT matrices [[W, Jgᵀ], [Jg, -δI]]
+    and right-hand sides, float64 numpy (tests/test_kkt.py construction)."""
+    rng = np.random.default_rng(seed)
+    Ks, rhss = [], []
+    for _ in range(B):
+        A = rng.normal(size=(n, n))
+        W = A @ A.T + 3 * np.eye(n)
+        Jg = rng.normal(size=(m, n))
+        Ks.append(np.block([[W, Jg.T], [Jg, -1e-6 * np.eye(m)]]))
+        rhss.append(rng.normal(size=n + m))
+    return np.stack(Ks), np.stack(rhss)
+
+
+def _residual(K, x, rhs):
+    return float(np.max(np.abs(np.einsum("...ij,...j->...i", K, x) - rhs)))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def test_plain_matches_jax_reference_f64():
+    """Same recursion, same operation order: f64 agreement to round-off
+    (1e-12 relative to the entries' scale)."""
+    K, rhs = _quasi_definite_batch(6, 11, 4, seed=1)
+    LD_ref = np.array(jax.vmap(jkkt.ldl_factor_ref)(jnp.asarray(K)))
+    x_ref = np.asarray(jax.vmap(jkkt.ldl_solve_ref)(jnp.asarray(LD_ref),
+                                                   jnp.asarray(rhs)))
+    LD = kkt.ldl_factor_plain(torch.as_tensor(K)).numpy()
+    x = kkt.ldl_solve_plain(torch.as_tensor(LD_ref),
+                            torch.as_tensor(rhs)).numpy()
+    np.testing.assert_allclose(LD, LD_ref, rtol=1e-12,
+                               atol=1e-12 * np.abs(LD_ref).max())
+    np.testing.assert_allclose(x, x_ref, rtol=1e-12,
+                               atol=1e-12 * np.abs(x_ref).max())
+    assert _residual(K, x, rhs) < 1e-8
+
+
+@pytest.mark.parametrize("B,n,m", [(5, 13, 5), (3, 7, 3), (256, 61, 31)],
+                         ids=["5x18", "pad-3x10", "main-256x92"])
+def test_plain_matches_pallas_interpret_f32(B, n, m):
+    """The TPU kernels through the Pallas interpreter vs the plain versions,
+    both in f32: the lower triangle (the factor's contract) and the
+    solution agree to f32 round-off accumulated over the recursion
+    (rtol 1e-4, atol 1e-5 as in tests/test_kkt.py; the TPU solve multiplies
+    by a precomputed 1/d where the plain version divides)."""
+    K, rhs = _quasi_definite_batch(B, n, m, seed=B)
+    Kj = jnp.asarray(K, jnp.float32)
+    LD_tpu = np.array(jkkt._ldl_factor_batched(Kj, interpret=True))
+    x_tpu = np.asarray(jkkt._ldl_solve_batched(
+        jnp.asarray(LD_tpu), jnp.asarray(rhs, jnp.float32), interpret=True))
+    K32 = torch.as_tensor(K, dtype=torch.float32)
+    LD = kkt.ldl_factor_plain(K32)
+    x = kkt.ldl_solve_plain(torch.as_tensor(LD_tpu),
+                            torch.as_tensor(rhs, dtype=torch.float32))
+    np.testing.assert_allclose(np.tril(LD.numpy()), np.tril(LD_tpu),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(x.numpy(), x_tpu, rtol=1e-4,
+                               atol=1e-4 * np.abs(x_tpu).max())
+    x_own = kkt.ldl_solve_plain(LD, torch.as_tensor(rhs, dtype=torch.float32))
+    assert _residual(K, x_own.numpy().astype(np.float64), rhs) < 1e-2
+
+
+def test_solve_kkt_ldl_refinement_accuracy_f32():
+    """Equilibration + two refinement steps bring the f32 solve to the
+    residual tests/test_kkt.py demands of the JAX path (1e-4)."""
+    K, rhs = _quasi_definite_batch(4, 17, 6, seed=2)
+    x = kkt.solve_kkt_ldl(torch.as_tensor(K, dtype=torch.float32),
+                          torch.as_tensor(rhs, dtype=torch.float32))
+    assert _residual(K.astype(np.float32), x.numpy(),
+                     rhs.astype(np.float32)) < 1e-4
+    x_jax = np.asarray(jax.vmap(jkkt.solve_kkt_ldl)(
+        jnp.asarray(K, jnp.float32), jnp.asarray(rhs, jnp.float32)))
+    np.testing.assert_allclose(x.numpy(), x_jax, rtol=1e-4, atol=1e-5)
+
+
+def test_indefinite_matrix_same_pattern_as_jax():
+    """A genuinely indefinite matrix (zero pivot) gives the same finite /
+    non-finite pattern as the JAX reference — never a silent difference."""
+    K = np.diag([1.0, -1.0, 0.0, 2.0])
+    rhs = np.ones(4)
+    x_ref = np.asarray(jkkt.ldl_solve_ref(
+        jkkt.ldl_factor_ref(jnp.asarray(K, jnp.float32)),
+        jnp.asarray(rhs, jnp.float32)))
+    x = kkt.ldl_solve_plain(
+        kkt.ldl_factor_plain(torch.as_tensor(K, dtype=torch.float32)),
+        torch.as_tensor(rhs, dtype=torch.float32)).numpy()
+    assert x.shape == (4,)
+    np.testing.assert_array_equal(np.isfinite(x), np.isfinite(x_ref))
+    fin = np.isfinite(x_ref)
+    np.testing.assert_allclose(x[fin], x_ref[fin], rtol=1e-6)
+
+
+def test_wrappers_run_plain_on_cpu_without_launching():
+    K, rhs = _quasi_definite_batch(3, 5, 2, seed=3)
+    Kt = torch.as_tensor(K)
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    LD = kkt.ldl_factor(Kt)
+    x = kkt.ldl_solve(LD, torch.as_tensor(rhs))
+    assert (kkt.ldl_factor.launches, kkt.ldl_solve.launches) == before
+    assert LD.dtype == torch.float64  # the CPU path keeps the input dtype
+    np.testing.assert_array_equal(LD.numpy(),
+                                  kkt.ldl_factor_plain(Kt).numpy())
+    assert _residual(K, x.numpy(), rhs) < 1e-8
+
+
+def test_auto_routing_rule_on_cpu():
+    """Off the card "auto" is LU (as the JAX package resolves off a TPU);
+    forcing "ldl" stands; "stage" is not ported and raises."""
+    assert kkt.resolve_kkt_method("auto", 92, "cpu") == "lu"
+    assert kkt.resolve_kkt_method("ldl", 92, "cpu") == "ldl"
+    assert kkt.resolve_kkt_method("lu", 92, "cpu") == "lu"
+    assert not kkt.ldl_fits(92, "cpu")
+    # 92 rows of 93 floats plus one 92-vector: under 48 KB without opt-in
+    assert kkt.smem_bytes(92) == (92 * 93 + 92) * 4 == 34592
+    with pytest.raises(NotImplementedError):
+        kkt.resolve_kkt_method("stage", 92, "cpu")
+    with pytest.raises(ValueError):
+        kkt.resolve_kkt_method("cholesky", 92, "cpu")
+
+
+@pytest.mark.cuda
+def test_auto_routing_rule_on_cuda(cuda_device):
+    """On the card "auto" is the LDLᵀ kernel where the factor fits a
+    block's opt-in shared memory (227 KB on Hopper), else LU."""
+    assert kkt.resolve_kkt_method("auto", 92, cuda_device) == "ldl"
+    assert kkt.resolve_kkt_method("auto", 128, cuda_device) == "ldl"
+    assert kkt.resolve_kkt_method("auto", 400, cuda_device) == "lu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m", [(256, 61, 31), (3, 5, 2), (130, 9, 4),
+                                   (64, 86, 42)],
+                         ids=["main-256x92", "3x7", "130x13", "smem-64x128"])
+def test_cuda_kernels_match_plain(cuda_device, B, n, m):
+    """Kernel vs plain version on the card, same f32 inputs: the kernels
+    round every product and difference separately, as the plain version
+    does, so they agree to 1e-4 relative (0 expected)."""
+    K, rhs = _quasi_definite_batch(B, n, m, seed=B)
+    Kc = torch.as_tensor(K, dtype=torch.float32, device=cuda_device)
+    bc = torch.as_tensor(rhs, dtype=torch.float32, device=cuda_device)
+    launches = kkt.ldl_factor.launches
+    LD = kkt.ldl_factor(Kc)
+    assert kkt.ldl_factor.launches == launches + 1
+    LD_plain = kkt.ldl_factor_plain(Kc)
+    scale = float(torch.tril(LD_plain).abs().max())
+    assert float(torch.tril(LD - LD_plain).abs().max()) <= 1e-4 * scale
+    x = kkt.ldl_solve(LD_plain, bc)
+    x_plain = kkt.ldl_solve_plain(LD_plain, bc)
+    assert float((x - x_plain).abs().max()) <= \
+        1e-4 * float(x_plain.abs().max())
+    x_full = kkt.solve_kkt_ldl(Kc, bc)
+    resid = (torch.einsum("bij,bj->bi", Kc, x_full) - bc).abs().max()
+    assert float(resid / bc.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_check_inputs(cuda_device):
+    """f64 inputs are cast to f32 and back; non-float and mismatched inputs
+    raise instead of launching."""
+    K, rhs = _quasi_definite_batch(2, 5, 2, seed=5)
+    Kc = torch.as_tensor(K, device=cuda_device)
+    LD = kkt.ldl_factor(Kc)
+    assert LD.dtype == torch.float64
+    with pytest.raises(TypeError):
+        kkt.ldl_factor(Kc.to(torch.int32))
+    with pytest.raises(ValueError):
+        kkt.ldl_factor(Kc[..., :-1])
+    with pytest.raises(ValueError):
+        kkt.ldl_solve(LD, torch.as_tensor(rhs[:, :-1], device=cuda_device))
