@@ -22,9 +22,10 @@ the tensor it was given lies on the CPU. Each keeps a launch counter
 
 Routing. ``resolve_kkt_method("auto", size, device)`` replaces the JAX
 package's eager availability probe with a static size rule: on CUDA,
-"auto" is ``"ldl"`` when an M×M factor fits one block's opt-in shared
-memory (``shared_memory_per_block_optin``), else ``"lu"``; on the CPU it is
-``"lu"``, as the JAX package resolves off a TPU.
+"auto" is ``"ldl"`` when M <= ``MAX_M`` (240) and both kernels fit one
+block's opt-in shared memory (``shared_memory_per_block_optin``), else
+``"lu"``; on the CPU it is ``"lu"``, as the JAX package resolves off a
+TPU.
 """
 
 from __future__ import annotations
@@ -53,16 +54,19 @@ def _safe_d(d: torch.Tensor) -> torch.Tensor:
 
 def ldl_factor_plain(K: torch.Tensor) -> torch.Tensor:
     """Compact LDLᵀ of (..., M, M) symmetric quasi-definite matrices, in the
-    input dtype (JAX package: ``ldl_factor_ref``). Works on a copy, updated
-    in place step by step."""
-    A = K.clone()
+    input dtype, as ``tril(LD)``: unit L strictly below the diagonal, D on
+    it, zeros above it (JAX package: ``ldl_factor_ref``, which reads row k
+    where this reads column k). Reads only the lower triangle of K; works on
+    a copy, updated in place step by step."""
+    A = torch.tril(K)
     M = A.shape[-1]
     for k in range(M):
         d = _safe_d(A[..., k, k])
-        l = A[..., k + 1:, k] / d[..., None]
-        # rank-1 update of the trailing block (i > k, j > k); the stored
-        # L columns (j < k) are untouched
-        A[..., k + 1:, k + 1:] -= l[..., :, None] * A[..., k, None, k + 1:]
+        w = A[..., k + 1:, k]
+        l = w / d[..., None]
+        # rank-1 update of the lower trailing triangle (i >= j > k); the
+        # upper part takes a zero and stays zero
+        A[..., k + 1:, k + 1:] -= torch.tril(l[..., :, None] * w[..., None, :])
         A[..., k + 1:, k] = l
     return A
 
@@ -95,27 +99,54 @@ _SIGNATURES = {
                                     ctypes.c_int, ctypes.c_void_p]),
 }
 
+#: the largest M the kernels take (``kMaxM`` in ``csrc/``), the range
+#: "auto" routed here before the redesign; a lane keeps ceil(M/32) <= 8
+#: rows of a column in registers
+MAX_M = 240
+
+_ENTRIES: dict = {}
+_SMEM_OPTIN: dict = {}
+
 
 def _entry(name: str):
-    """The C entry point of kernel ``name``, with argtypes declared."""
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(cuda_build.load(name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point of kernel ``name``, with argtypes declared;
+    resolved on first use and cached."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(cuda_build.load(name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
     return fn
 
 
-def smem_bytes(M: int) -> int:
-    """Shared memory one block of either kernel needs for an M×M matrix
-    (row stride padded to an odd number of floats, plus one M-vector); the
-    same formula as ``ldl_*_smem_bytes`` in ``csrc/``."""
-    return (M * (M | 1) + M) * 4
+def factor_smem_bytes(M: int) -> int:
+    """Shared memory one factor block needs for an M×M matrix: the packed
+    lower triangle and two double-buffered M-vectors (l and w); the same
+    formula as ``ldl_factor_smem_bytes`` in ``csrc/ldl_factor.cu``."""
+    return (M * (M + 1) // 2 + 4 * M) * 4
+
+
+def solve_smem_bytes(M: int) -> int:
+    """Shared memory one solve block needs for an M×M factor: the packed
+    lower triangle; the same formula as ``ldl_solve_smem_bytes`` in
+    ``csrc/ldl_solve.cu``."""
+    return M * (M + 1) // 2 * 4
 
 
 def _smem_optin(device: torch.device) -> int:
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin",
-                       _DEFAULT_SMEM))
+    """Opt-in shared memory per block of a CUDA device, cached per device
+    index."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    optin = _SMEM_OPTIN.get(index)
+    if optin is None:
+        props = torch.cuda.get_device_properties(index)
+        optin = int(getattr(props, "shared_memory_per_block_optin",
+                            _DEFAULT_SMEM))
+        _SMEM_OPTIN[index] = optin
+    return optin
 
 
 def _check_cuda_input(t: torch.Tensor, name: str, ndim_min: int):
@@ -129,19 +160,36 @@ def _check_cuda_input(t: torch.Tensor, name: str, ndim_min: int):
                          f"shape {tuple(t.shape)}")
 
 
-def _launch_args(M: int, device: torch.device):
-    if smem_bytes(M) > _smem_optin(device):
+def _check_size(M: int, device: torch.device) -> None:
+    if not ldl_fits(M, device):
         raise ValueError(
-            f"an {M}x{M} LDLᵀ needs {smem_bytes(M)} bytes of shared memory "
-            f"per block, above this card's {_smem_optin(device)}; use "
-            f"kkt_method='lu' (resolve_kkt_method routes 'auto' there)")
-    return ctypes.c_int(M), ctypes.c_void_p(
-        torch.cuda.current_stream(device).cuda_stream)
+            f"an {M}x{M} LDLᵀ needs {factor_smem_bytes(M)} bytes of shared "
+            f"memory per block (this card: {_smem_optin(device)}) and M <= "
+            f"{MAX_M}; use kkt_method='lu' (resolve_kkt_method routes "
+            f"'auto' there)")
+
+
+def _as_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous float32, else a contiguous
+    float32 copy."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s entry point with ``args`` and the current
+    stream of ``device``; raise on a failed launch."""
+    with torch.cuda.device(device):
+        rc = _entry(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def ldl_factor(K: torch.Tensor) -> torch.Tensor:
     """Compact LDLᵀ factor of (..., M, M) symmetric quasi-definite
-    matrices: unit L strictly below the diagonal, D on it. CUDA: the
+    matrices, as ``tril(LD)``: unit L strictly below the diagonal, D on it,
+    zeros above it. Reads only the lower triangle of K. CUDA: the
     ``csrc/ldl_factor.cu`` kernel in float32; CPU: ``ldl_factor_plain``."""
     if K.device.type == "cpu":
         return ldl_factor_plain(K)
@@ -149,20 +197,14 @@ def ldl_factor(K: torch.Tensor) -> torch.Tensor:
     M = K.shape[-1]
     if K.shape[-2] != M:
         raise ValueError(f"K must be square, got shape {tuple(K.shape)}")
-    Kf = K.to(torch.float32).reshape(-1, M, M).contiguous()
+    Kf = _as_f32(K)
     out = torch.empty_like(Kf)
-    B = Kf.shape[0]
-    if B and M:
-        with torch.cuda.device(K.device):
-            m, stream = _launch_args(M, K.device)
-            rc = _entry("ldl_factor")(
-                ctypes.c_void_p(Kf.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                ctypes.c_int(B), m, stream)
-        if rc != 0:
-            raise RuntimeError(f"ldl_factor kernel launch failed: CUDA error "
-                               f"{rc}")
+    B = Kf.numel() // (M * M) if M else 0
+    if B:
+        _check_size(M, K.device)
+        _launch("ldl_factor", K.device, Kf.data_ptr(), out.data_ptr(), B, M)
         ldl_factor.launches += 1
-    return out.reshape(K.shape).to(K.dtype)
+    return out if K.dtype == torch.float32 else out.to(K.dtype)
 
 
 ldl_factor.launches = 0
@@ -170,8 +212,9 @@ ldl_factor.launches = 0
 
 def ldl_solve(LD: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve L D Lᵀ x = b from :func:`ldl_factor` output; LD (..., M, M),
-    b (..., M) with the same leading axes. CUDA: the
-    ``csrc/ldl_solve.cu`` kernel in float32; CPU: ``ldl_solve_plain``."""
+    b (..., M) with the same leading axes. Reads only the lower triangle
+    of LD. CUDA: the ``csrc/ldl_solve.cu`` kernel in float32; CPU:
+    ``ldl_solve_plain``."""
     if LD.device.type == "cpu" and b.device.type == "cpu":
         return ldl_solve_plain(LD, b)
     _check_cuda_input(LD, "LD", 2)
@@ -181,24 +224,46 @@ def ldl_solve(LD: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             LD.shape[:-1] != b.shape:
         raise ValueError(f"LD {tuple(LD.shape)} on {LD.device} and b "
                          f"{tuple(b.shape)} on {b.device} do not match")
-    LDf = LD.to(torch.float32).reshape(-1, M, M).contiguous()
-    bf = b.to(torch.float32).reshape(-1, M).contiguous()
+    LDf = _as_f32(LD)
+    bf = _as_f32(b)
     out = torch.empty_like(bf)
-    B = bf.shape[0]
-    if B and M:
-        with torch.cuda.device(b.device):
-            m, stream = _launch_args(M, b.device)
-            rc = _entry("ldl_solve")(
-                ctypes.c_void_p(LDf.data_ptr()), ctypes.c_void_p(bf.data_ptr()),
-                ctypes.c_void_p(out.data_ptr()), ctypes.c_int(B), m, stream)
-        if rc != 0:
-            raise RuntimeError(f"ldl_solve kernel launch failed: CUDA error "
-                               f"{rc}")
+    B = bf.numel() // M if M else 0
+    if B:
+        _check_size(M, b.device)
+        _launch("ldl_solve", b.device, LDf.data_ptr(), bf.data_ptr(),
+                out.data_ptr(), B, M)
         ldl_solve.launches += 1
-    return out.reshape(b.shape).to(b.dtype)
+    return out if b.dtype == torch.float32 else out.to(b.dtype)
 
 
 ldl_solve.launches = 0
+
+
+def raw_launcher(name: str, *tensors: torch.Tensor):
+    """For timing only: a zero-argument callable that launches kernel
+    ``name`` on the given contiguous float32 CUDA tensors (factor: K, out;
+    solve: LD, b, out) with the entry point, pointers, sizes and stream
+    resolved once, so a launch costs one ctypes call. It keeps the tensors
+    alive and does not count launches."""
+    for t in tensors:
+        if t.device.type != "cuda" or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"{name}: raw launches take contiguous float32 "
+                             f"CUDA tensors, got {t.dtype} on {t.device}")
+    device = tensors[0].device
+    M = tensors[0].shape[-1]
+    _check_size(M, device)
+    B = tensors[-1].numel() // (M * M if name == "ldl_factor" else M)
+    fn = _entry(name)
+    args = (*(t.data_ptr() for t in tensors), B, M,
+            torch.cuda.current_stream(device).cuda_stream)
+
+    def launch() -> None:
+        if fn(*args) != 0:
+            raise RuntimeError(f"{name} kernel launch failed")
+
+    launch.tensors = tensors
+    return launch
 
 
 def reset_launch_counts() -> None:
@@ -247,10 +312,13 @@ def solve_kkt_ldl(K: torch.Tensor, rhs: torch.Tensor,
 
 def ldl_fits(size: int, device) -> bool:
     """Whether the LDLᵀ kernels take a ``size``×``size`` system on
-    ``device``: a CUDA device whose opt-in shared memory per block holds
-    the factor (``smem_bytes(size)``). Never True on the CPU."""
+    ``device``: a CUDA device, ``size <= MAX_M``, and both kernels' shared
+    memory (``factor_smem_bytes``, ``solve_smem_bytes``) within the
+    device's opt-in per block. Never True on the CPU."""
     dev = torch.device(device)
-    return dev.type == "cuda" and smem_bytes(size) <= _smem_optin(dev)
+    return dev.type == "cuda" and size <= MAX_M and \
+        max(factor_smem_bytes(size), solve_smem_bytes(size)) <= \
+        _smem_optin(dev)
 
 
 def resolve_kkt_method(method: str, size: int, device) -> str:

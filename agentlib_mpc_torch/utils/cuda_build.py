@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
-build takes seconds. Libraries are named by a hash of their source and
-flags (a stale library is never loaded) and land in
+build takes seconds. Libraries are named by a hash of their source, the
+shared headers (``csrc/*.cuh``) and the flags (a stale library is never
+loaded) and land in
 ``agentlib_mpc_torch/_build/``, which git ignores. All sources compile in
 parallel, one ``nvcc`` process each, at the first kernel launch or when a
 caller asks (``build_all``). Nothing is built at import.
@@ -63,7 +64,12 @@ def sources() -> list[Path]:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``src``, named by a hash of the source, the headers
+    beside it (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

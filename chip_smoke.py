@@ -8,12 +8,19 @@ non-zero without printing a result:
 
 1. env      — card, torch and CUDA versions, ``nvidia-smi`` name/power limit.
 2. build    — compile ``agentlib_mpc_torch/csrc/*.cu`` with nvcc (one
-              process per source, in parallel; ``-Xptxas -v`` report).
+              process per source, in parallel; ``-Xptxas -v`` report,
+              which must show no spills); the kernels' own shared-memory
+              sizes and MAX_M must equal those ``ops/kkt.py`` routes by.
 3. kernels  — each LDLᵀ kernel against its plain PyTorch version on the
-              card, on seeded quasi-definite KKT batches at the main path's
-              shape (256, 92), ragged shapes and one above 48 KB of shared
-              memory; times at (256, 92) with CUDA events beside the bound,
-              the plain version and a library yardstick.
+              card (bitwise), on seeded quasi-definite KKT batches at the
+              main path's shape (256, 92), ragged shapes, one above 48 KB of
+              shared memory and the largest routed size, M = 240. Times at
+              (256, 92): device time per launch from torch.profiler's kernel
+              events, CUDA events around raw launches (one ctypes call
+              each) and around the wrappers, beside the bound, the plain
+              version and a library yardstick; then device times at
+              M = 32, 64, 92, 128 (B = 256), whose slope in M separates the
+              recursion's per-step latency from the load.
 4. slice    — the 256-zone consensus-ADMM control step (``build_step``) in
               f32 on the card: one cold step and three warm steps, with the
               kernels' launch counters reset just before and read just after.
@@ -44,12 +51,15 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 MAIN_B, MAIN_M, MAIN_N = 256, 92, 61          # zones, KKT dim, primal dim
-CHECK_SHAPES = ((256, 92, 61), (3, 7, 5), (130, 13, 9), (64, 128, 86))
-#: kernel vs plain version, same inputs, same device, f32. Both perform the
-#: same operations in the same order with every product and difference
-#: rounded separately, so the expected difference is 0; the tolerance
-#: allows for reordering round-off over the M-step recursion.
-KERNEL_RTOL = 1e-4
+CHECK_SHAPES = ((256, 92, 61), (3, 7, 5), (130, 13, 9), (64, 128, 86),
+                (16, 240, 160))
+#: KKT sizes of the timing slope, each at B = MAIN_B
+SLOPE_M = (32, 64, 92, 128)
+#: kernel vs plain version, same inputs, same device, f32: both perform the
+#: same rounded operations (every product and difference rounded
+#: separately, IEEE division) in the same per-element order, so they must
+#: agree bitwise
+KERNEL_ABS_TOL = 0.0
 #: relative residual max|Kx − b| / max|b| of the equilibrated, refined
 #: solve (solve_kkt_ldl) in f32 on these quasi-definite batches
 RESIDUAL_TOL = 1e-3
@@ -122,20 +132,101 @@ def phase_env(torch):
 
 
 def phase_build():
+    import ctypes
+    import re
+
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.utils import cuda_build
 
     t0 = time.perf_counter()
     results = cuda_build.build_all()
+    # the shared-memory formulas ldl_fits reads must be the kernels' own
+    formulas = {"ldl_factor": kkt.factor_smem_bytes,
+                "ldl_solve": kkt.solve_smem_bytes}
+    smem = {}
+    for name, formula in formulas.items():
+        lib = cuda_build.load(name)
+        smem_fn = getattr(lib, f"{name}_smem_bytes")
+        smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_longlong
+        max_m = getattr(lib, f"{name}_max_m")
+        max_m.restype = ctypes.c_int
+        check(max_m() == kkt.MAX_M,
+              f"{name}: kernel MAX_M {max_m()} != kkt.MAX_M {kkt.MAX_M}")
+        smem[name] = {}
+        for _, M, _ in CHECK_SHAPES:
+            check(smem_fn(M) == formula(M),
+                  f"{name}: kernel needs {smem_fn(M)} B of shared memory at "
+                  f"M={M}, kkt.py's formula says {formula(M)}")
+            smem[name][str(M)] = smem_fn(M)
+    reports = {name: [ln.strip() for ln in r.ptxas.splitlines() if ln.strip()]
+               for name, r in results.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           # dynamic shared memory per block (ptxas sees static only)
-          "dynamic_smem_bytes": {str(M): kkt.smem_bytes(M)
-                                 for _, M, _ in CHECK_SHAPES},
+          "dynamic_smem_bytes": smem,
           "libraries": {
               name: {"seconds": r.seconds, "cached": r.cached,
-                     "ptxas": [ln.strip() for ln in r.ptxas.splitlines()
-                               if ln.strip()]}
+                     "ptxas": reports[name]}
               for name, r in results.items()}})
+    for name, lines in reports.items():
+        # each usage line follows the line naming its kernel
+        spills = [(entry, ln) for entry, ln in zip([""] + lines, lines)
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        check(not spills, f"{name}: ptxas reports spills: {spills}")
+
+
+def device_ms(torch, fn, kernel: str, launches: int = 100) -> float:
+    """Mean device time per launch of ``kernel`` over ``launches`` calls of
+    ``fn``, from torch.profiler's CUDA kernel events (sum / count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    # CUPTI may miss a launch at the edge of the window: the mean is over
+    # the kernel events it saw, at least 90 % of the launches
+    check(len(spans) >= 0.9 * launches,
+          f"profiler saw {len(spans)} {kernel} events of {launches} launches")
+    return sum(spans) / len(spans) / 1e3
+
+
+def bounds(B: int, M: int):
+    """(bound_ms, bound_by) of the factor and the solve on B systems of size
+    M: bytes each function must move (the lower triangle and diagonal it
+    reads, each output written once) over the memory rate, against its
+    flops over the fp32 rate."""
+    tri = B * M * (M + 1) // 2 * 4
+    factor_bytes = tri + B * M * M * 4
+    factor_flops = B * sum(n + n * (n + 1) for n in range(M))
+    solve_bytes = tri + 2 * B * M * 4
+    solve_flops = B * (2 * M * (M - 1) + M)
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                else "operations")
+
+    return bound(factor_bytes, factor_flops), bound(solve_bytes, solve_flops)
+
+
+def kernel_times(torch, kkt, K, b, LD):
+    """Device time per launch (profiler) and raw-launch event time of both
+    kernels on one batch."""
+    raw_f = kkt.raw_launcher("ldl_factor", K, torch.empty_like(K))
+    raw_s = kkt.raw_launcher("ldl_solve", LD, b, torch.empty_like(b))
+    return {
+        "factor_device_ms": device_ms(torch, raw_f, "ldl_factor_kernel"),
+        "factor_ms": time_ms(raw_f, 200),
+        "solve_device_ms": device_ms(torch, raw_s, "ldl_solve_kernel"),
+        "solve_ms": time_ms(raw_s, 200),
+    }
 
 
 def phase_kernels(torch, dev):
@@ -152,18 +243,16 @@ def phase_kernels(torch, dev):
         x_plain = kkt.ldl_solve_plain(LD_plain, b)
         x_full = kkt.solve_kkt_ldl(K, b)
         torch.cuda.synchronize()
-        f_err = float(torch.tril(LD_kernel - LD_plain).abs().max())
-        f_scale = float(torch.tril(LD_plain).abs().max())
+        f_err = float((LD_kernel - LD_plain).abs().max())
         s_err = float((x_kernel - x_plain).abs().max())
-        s_scale = float(x_plain.abs().max())
         resid = float((torch.einsum("bij,bj->bi", K, x_full) - b).abs().max()
                       / b.abs().max())
         errors[f"{B}x{M}"] = {"factor_max_abs_err": f_err,
                               "solve_max_abs_err": s_err,
                               "residual_rel": resid}
-        check(f_err <= KERNEL_RTOL * max(1.0, f_scale),
+        check(f_err <= KERNEL_ABS_TOL,
               f"ldl_factor vs plain at {B}x{M}: {f_err}")
-        check(s_err <= KERNEL_RTOL * max(1.0, s_scale),
+        check(s_err <= KERNEL_ABS_TOL,
               f"ldl_solve vs plain at {B}x{M}: {s_err}")
         check(np.isfinite(resid) and resid <= RESIDUAL_TOL,
               f"solve_kkt_ldl residual at {B}x{M}: {resid}")
@@ -175,50 +264,80 @@ def phase_kernels(torch, dev):
     LD = kkt.ldl_factor_plain(K)
     LDlib, piv = torch.linalg.ldl_factor(K)
     lu, lu_piv = torch.linalg.lu_factor(K)
-    t = {
-        "factor_ms": time_ms(lambda: kkt.ldl_factor(K), 200),
+    t = kernel_times(torch, kkt, K, b, LD)
+    t.update({
+        "factor_wrapper_ms": time_ms(lambda: kkt.ldl_factor(K), 200),
+        "solve_wrapper_ms": time_ms(lambda: kkt.ldl_solve(LD, b), 200),
         "factor_plain_ms": time_ms(lambda: kkt.ldl_factor_plain(K), 10),
         "factor_library_ms": time_ms(lambda: torch.linalg.ldl_factor(K), 5, 1),
-        "solve_ms": time_ms(lambda: kkt.ldl_solve(LD, b), 200),
         "solve_plain_ms": time_ms(lambda: kkt.ldl_solve_plain(LD, b), 10),
         "solve_library_ms": time_ms(
             lambda: torch.linalg.ldl_solve(LDlib, piv, b[..., None]), 5, 1),
         "lu_factor_ms": time_ms(lambda: torch.linalg.lu_factor(K), 20),
         "lu_solve_ms": time_ms(
             lambda: torch.linalg.lu_solve(lu, lu_piv, b[..., None]), 20),
-    }
-    B, M = MAIN_B, MAIN_M
-    factor_bytes = 2 * B * M * M * 4
-    factor_flops = B * sum(2 * (M - k - 1) ** 2 + (M - k - 1)
-                           for k in range(M))
-    solve_bytes = B * M * M * 4 + 2 * B * M * 4
-    solve_flops = B * (2 * M * (M - 1) + M)
-
-    def bound(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-                else "operations")
-
-    f_bound, f_by = bound(factor_bytes, factor_flops)
-    s_bound, s_by = bound(solve_bytes, solve_flops)
+    })
+    # device time vs raw-launch event time: more than 20 % apart needs a
+    # reason
+    disagreements = {}
+    for k in ("factor", "solve"):
+        dev_ms, ev_ms = t[f"{k}_device_ms"], t[f"{k}_ms"]
+        if abs(ev_ms - dev_ms) > 0.2 * dev_ms:
+            disagreements[k] = (
+                f"raw-launch events {ev_ms:.5f} ms vs device {dev_ms:.5f} ms: "
+                + ("the card idles between launches; the host's enqueue "
+                   "(one ctypes call) or the launch gap is longer than the "
+                   "kernel" if ev_ms > dev_ms else
+                   "the profiler's kernel spans include its per-kernel "
+                   "instrumentation"))
+    # ---- the slope in M at B = 256 ------------------------------------------
+    slope = []
+    for M in SLOPE_M:
+        n = (2 * M) // 3
+        Ks_np, bs_np = quasi_definite_batch(MAIN_B, n, M - n, M)
+        Ks = torch.as_tensor(Ks_np, dtype=torch.float32, device=dev)
+        bs = torch.as_tensor(bs_np, dtype=torch.float32, device=dev)
+        ts = kernel_times(torch, kkt, Ks, bs, kkt.ldl_factor_plain(Ks))
+        (fb, _), (sb, _) = bounds(MAIN_B, M)
+        slope.append({
+            "M": M, "factor_device_ms": ts["factor_device_ms"],
+            "factor_ms": ts["factor_ms"], "factor_bound_ms": fb,
+            "factor_us_per_step": ts["factor_device_ms"] * 1e3 / M,
+            "solve_device_ms": ts["solve_device_ms"],
+            "solve_ms": ts["solve_ms"], "solve_bound_ms": sb,
+            "solve_us_per_step": ts["solve_device_ms"] * 1e3 / (2 * M)})
+    fits = {}
+    for k in ("factor", "solve"):
+        a1, a0 = np.polyfit([r["M"] for r in slope],
+                            [r[f"{k}_device_ms"] * 1e3 for r in slope], 1)
+        fits[k] = {"us_per_unit_M": float(a1), "us_at_M0": float(a0)}
+    (f_bound, f_by), (s_bound, s_by) = bounds(MAIN_B, MAIN_M)
     emit({"phase": "kernels", "errors": errors, "times": t,
           "factor_bound_ms": f_bound, "solve_bound_ms": s_bound,
+          "device_vs_events": disagreements or "within 20 %",
+          "slope_B256": slope, "slope_fit": fits,
           "shape": [MAIN_B, MAIN_M]})
+    for why in disagreements.values():
+        print(f"chip_smoke: {why}", flush=True)
     main = errors[f"{MAIN_B}x{MAIN_M}"]
+    common = {"route": "cuda"}
     return [
-        {"name": "ldl_factor", "route": "cuda",
+        {"name": "ldl_factor", **common,
          "source": "agentlib_mpc_torch/csrc/ldl_factor.cu",
          "replaces": "agentlib_mpc_tpu/ops/kkt.py:72",
          "max_abs_err": main["factor_max_abs_err"],
-         "ms": t["factor_ms"], "plain_ms": t["factor_plain_ms"],
+         "device_ms": t["factor_device_ms"], "ms": t["factor_ms"],
+         "wrapper_ms": t["factor_wrapper_ms"],
+         "plain_ms": t["factor_plain_ms"],
          "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": t["factor_library_ms"]},
-        {"name": "ldl_solve", "route": "cuda",
+        {"name": "ldl_solve", **common,
          "source": "agentlib_mpc_torch/csrc/ldl_solve.cu",
          "replaces": "agentlib_mpc_tpu/ops/kkt.py:104",
          "max_abs_err": main["solve_max_abs_err"],
-         "ms": t["solve_ms"], "plain_ms": t["solve_plain_ms"],
+         "device_ms": t["solve_device_ms"], "ms": t["solve_ms"],
+         "wrapper_ms": t["solve_wrapper_ms"],
+         "plain_ms": t["solve_plain_ms"],
          "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": t["solve_library_ms"]},
     ]

@@ -8,6 +8,8 @@ the plain versions on a card; those tests carry the ``cuda`` marker and
 skip without one.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,8 +46,9 @@ def cuda_device():
 
 
 def test_plain_matches_jax_reference_f64():
-    """Same recursion, same operation order: f64 agreement to round-off
-    (1e-12 relative to the entries' scale)."""
+    """Same recursion: f64 agreement to round-off (1e-12 relative to the
+    entries' scale) on the lower triangle, the factor's contract (the JAX
+    reference leaves junk above the diagonal, the port zeros)."""
     K, rhs = _quasi_definite_batch(6, 11, 4, seed=1)
     LD_ref = np.array(jax.vmap(jkkt.ldl_factor_ref)(jnp.asarray(K)))
     x_ref = np.asarray(jax.vmap(jkkt.ldl_solve_ref)(jnp.asarray(LD_ref),
@@ -53,21 +56,49 @@ def test_plain_matches_jax_reference_f64():
     LD = kkt.ldl_factor_plain(torch.as_tensor(K)).numpy()
     x = kkt.ldl_solve_plain(torch.as_tensor(LD_ref),
                             torch.as_tensor(rhs)).numpy()
-    np.testing.assert_allclose(LD, LD_ref, rtol=1e-12,
+    np.testing.assert_allclose(LD, np.tril(LD_ref), rtol=1e-12,
                                atol=1e-12 * np.abs(LD_ref).max())
     np.testing.assert_allclose(x, x_ref, rtol=1e-12,
                                atol=1e-12 * np.abs(x_ref).max())
     assert _residual(K, x, rhs) < 1e-8
 
 
-@pytest.mark.parametrize("B,n,m", [(5, 13, 5), (3, 7, 3), (256, 61, 31)],
-                         ids=["5x18", "pad-3x10", "main-256x92"])
+_CASES = pytest.mark.parametrize(
+    "B,n,m", [(5, 13, 5), (3, 7, 3), (256, 61, 31)],
+    ids=["5x18", "pad-3x10", "main-256x92"])
+
+
+@_CASES
+def test_plain_factor_is_tril_of_jax_reference_f64(B, n, m):
+    """The plain factor is ``tril(LD)``: exact zeros above the diagonal,
+    and on and below it the JAX reference's factor to 1e-12 in f64 (the
+    reference reads row k where the port reads column k; the matrices are
+    symmetric only to round-off)."""
+    K, _ = _quasi_definite_batch(B, n, m, seed=B + 1)
+    LD_ref = np.array(jax.vmap(jkkt.ldl_factor_ref)(jnp.asarray(K)))
+    LD = kkt.ldl_factor_plain(torch.as_tensor(K)).numpy()
+    assert np.all(np.triu(LD, 1) == 0.0)
+    np.testing.assert_allclose(LD, np.tril(LD_ref), rtol=1e-12,
+                               atol=1e-12 * np.abs(LD_ref).max())
+
+
+def test_plain_factor_reads_only_the_lower_triangle():
+    """What lies above the diagonal of K never reaches the factor."""
+    K, _ = _quasi_definite_batch(4, 9, 4, seed=7)
+    Kt = torch.as_tensor(K)
+    junk = Kt + torch.triu(torch.full_like(Kt, 1e3), 1)
+    assert torch.equal(kkt.ldl_factor_plain(junk),
+                       kkt.ldl_factor_plain(Kt))
+
+
+@_CASES
 def test_plain_matches_pallas_interpret_f32(B, n, m):
     """The TPU kernels through the Pallas interpreter vs the plain versions,
-    both in f32: the lower triangle (the factor's contract) and the
-    solution agree to f32 round-off accumulated over the recursion
-    (rtol 1e-4, atol 1e-5 as in tests/test_kkt.py; the TPU solve multiplies
-    by a precomputed 1/d where the plain version divides)."""
+    both in f32: the lower triangle (the factor's contract; the plain
+    factor holds zeros above it) and the solution agree to f32 round-off
+    accumulated over the recursion (rtol 1e-4, atol 1e-5 as in
+    tests/test_kkt.py; the TPU solve multiplies by a precomputed 1/d where
+    the plain version divides)."""
     K, rhs = _quasi_definite_batch(B, n, m, seed=B)
     Kj = jnp.asarray(K, jnp.float32)
     LD_tpu = np.array(jkkt._ldl_factor_batched(Kj, interpret=True))
@@ -75,9 +106,10 @@ def test_plain_matches_pallas_interpret_f32(B, n, m):
         jnp.asarray(LD_tpu), jnp.asarray(rhs, jnp.float32), interpret=True))
     K32 = torch.as_tensor(K, dtype=torch.float32)
     LD = kkt.ldl_factor_plain(K32)
+    assert np.all(np.triu(LD.numpy(), 1) == 0.0)
     x = kkt.ldl_solve_plain(torch.as_tensor(LD_tpu),
                             torch.as_tensor(rhs, dtype=torch.float32))
-    np.testing.assert_allclose(np.tril(LD.numpy()), np.tril(LD_tpu),
+    np.testing.assert_allclose(LD.numpy(), np.tril(LD_tpu),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(x.numpy(), x_tpu, rtol=1e-4,
                                atol=1e-4 * np.abs(x_tpu).max())
@@ -135,31 +167,114 @@ def test_auto_routing_rule_on_cpu():
     assert kkt.resolve_kkt_method("ldl", 92, "cpu") == "ldl"
     assert kkt.resolve_kkt_method("lu", 92, "cpu") == "lu"
     assert not kkt.ldl_fits(92, "cpu")
-    # 92 rows of 93 floats plus one 92-vector: under 48 KB without opt-in
-    assert kkt.smem_bytes(92) == (92 * 93 + 92) * 4 == 34592
     with pytest.raises(NotImplementedError):
         kkt.resolve_kkt_method("stage", 92, "cpu")
     with pytest.raises(ValueError):
         kkt.resolve_kkt_method("cholesky", 92, "cpu")
 
 
+def test_library_name_follows_shared_headers(monkeypatch, tmp_path):
+    """A kernel's library is named by a hash that covers the headers its
+    source includes, so an edited header never loads a stale library."""
+    from agentlib_mpc_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// one\n")
+    before = cuda_build._lib_path(src)
+    assert before == cuda_build._lib_path(src)
+    header.write_text("// two\n")
+    assert cuda_build._lib_path(src) != before
+    assert cuda_build.sources() == [src]
+
+
+#: (M, factor bytes, solve bytes): the packed lower triangle, M(M+1)/2
+#: floats, for both; the factor adds two double-buffered M-vectors
+_SMEM = [(7, 224, 112), (92, 18584, 17112), (128, 35072, 33024),
+         (240, 119520, 115680)]
+
+
+@pytest.mark.parametrize("M,factor,solve", _SMEM,
+                         ids=[str(M) for M, _, _ in _SMEM])
+def test_factor_smem_bytes(M, factor, solve):
+    assert kkt.factor_smem_bytes(M) == (M * (M + 1) // 2 + 4 * M) * 4 \
+        == factor
+
+
+@pytest.mark.parametrize("M,factor,solve", _SMEM,
+                         ids=[str(M) for M, _, _ in _SMEM])
+def test_solve_smem_bytes(M, factor, solve):
+    assert kkt.solve_smem_bytes(M) == M * (M + 1) // 2 * 4 == solve
+
+
+def test_ldl_fits_boundary(monkeypatch):
+    """On a card with Hopper's 232,448 B opt-in, "auto" takes LDLᵀ up to
+    M = 240 (the kernels' MAX_M) and LU above; with only CUDA's default
+    48 KB the factor's shared memory sets the boundary (M = 152)."""
+    monkeypatch.setattr(kkt, "_smem_optin", lambda device: 232448)
+    assert kkt.MAX_M == 240
+    assert kkt.factor_smem_bytes(240) <= 232448
+    assert kkt.ldl_fits(240, "cuda")
+    assert not kkt.ldl_fits(241, "cuda")
+    assert kkt.resolve_kkt_method("auto", 240, "cuda") == "ldl"
+    assert kkt.resolve_kkt_method("auto", 241, "cuda") == "lu"
+    monkeypatch.setattr(kkt, "_smem_optin", lambda device: 48 * 1024)
+    assert kkt.ldl_fits(152, "cuda")
+    assert not kkt.ldl_fits(153, "cuda")
+    assert not kkt.ldl_fits(92, "cpu")
+
+
+def test_entry_points_resolved_once(monkeypatch):
+    """Each kernel's C entry point is looked up, and its argtypes set, on
+    first use only; later launches reuse it."""
+    loads = []
+
+    class _Lib:
+        def __init__(self, name):
+            def fn(*args):
+                return 0
+            setattr(self, kkt._SIGNATURES[name][0], fn)
+
+    def fake_load(name):
+        loads.append(name)
+        return _Lib(name)
+
+    monkeypatch.setattr(kkt.cuda_build, "load", fake_load)
+    monkeypatch.setattr(kkt, "_ENTRIES", {})
+    for _ in range(3):
+        f = kkt._entry("ldl_factor")
+        s = kkt._entry("ldl_solve")
+    assert loads == ["ldl_factor", "ldl_solve"]
+    assert f is kkt._entry("ldl_factor") and s is kkt._entry("ldl_solve")
+    assert f.argtypes == kkt._SIGNATURES["ldl_factor"][1]
+    assert s.restype is ctypes.c_int
+
+
 @pytest.mark.cuda
 def test_auto_routing_rule_on_cuda(cuda_device):
-    """On the card "auto" is the LDLᵀ kernel where the factor fits a
-    block's opt-in shared memory (227 KB on Hopper), else LU."""
+    """On the card "auto" is the LDLᵀ kernel up to M = 240, where both
+    kernels fit a block's opt-in shared memory (227 KB on Hopper), else
+    LU."""
     assert kkt.resolve_kkt_method("auto", 92, cuda_device) == "ldl"
     assert kkt.resolve_kkt_method("auto", 128, cuda_device) == "ldl"
+    assert kkt.resolve_kkt_method("auto", 240, cuda_device) == "ldl"
+    assert kkt.resolve_kkt_method("auto", 241, cuda_device) == "lu"
     assert kkt.resolve_kkt_method("auto", 400, cuda_device) == "lu"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,m", [(256, 61, 31), (3, 5, 2), (130, 9, 4),
-                                   (64, 86, 42)],
-                         ids=["main-256x92", "3x7", "130x13", "smem-64x128"])
+                                   (64, 86, 42), (16, 160, 80)],
+                         ids=["main-256x92", "3x7", "130x13", "smem-64x128",
+                              "max-16x240"])
 def test_cuda_kernels_match_plain(cuda_device, B, n, m):
     """Kernel vs plain version on the card, same f32 inputs: the kernels
-    round every product and difference separately, as the plain version
-    does, so they agree to 1e-4 relative (0 expected)."""
+    perform the plain versions' rounded operations in the same per-element
+    order, so they agree exactly (max abs err 0.0), zeros above the
+    factor's diagonal included. M = 240 is the largest "auto" routes to
+    LDLᵀ."""
     K, rhs = _quasi_definite_batch(B, n, m, seed=B)
     Kc = torch.as_tensor(K, dtype=torch.float32, device=cuda_device)
     bc = torch.as_tensor(rhs, dtype=torch.float32, device=cuda_device)
@@ -167,12 +282,10 @@ def test_cuda_kernels_match_plain(cuda_device, B, n, m):
     LD = kkt.ldl_factor(Kc)
     assert kkt.ldl_factor.launches == launches + 1
     LD_plain = kkt.ldl_factor_plain(Kc)
-    scale = float(torch.tril(LD_plain).abs().max())
-    assert float(torch.tril(LD - LD_plain).abs().max()) <= 1e-4 * scale
+    assert float((LD - LD_plain).abs().max()) == 0.0
     x = kkt.ldl_solve(LD_plain, bc)
     x_plain = kkt.ldl_solve_plain(LD_plain, bc)
-    assert float((x - x_plain).abs().max()) <= \
-        1e-4 * float(x_plain.abs().max())
+    assert float((x - x_plain).abs().max()) == 0.0
     x_full = kkt.solve_kkt_ldl(Kc, bc)
     resid = (torch.einsum("bij,bj->bi", Kc, x_full) - bc).abs().max()
     assert float(resid / bc.abs().max()) < 1e-3
