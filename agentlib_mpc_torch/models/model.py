@@ -17,6 +17,7 @@ package vmaps over the stage axis). Results stack along axis 0.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Iterable, Sequence
 
@@ -296,13 +297,35 @@ class Model:
 
     def simulate_step(self, x_diff, u, p, dt: float, substeps: int = 10,
                       method: str = "rk4"):
-        """Integrate the ODE over one sample (JAX package:
-        ``Model.simulate_step``). Needs ``ops/integrators.py``, which is
-        ROADMAP Queue 1 item "integrators and multiple shooting"."""
-        raise NotImplementedError(
-            "Model.simulate_step needs ops/integrators.py, which the port "
-            "has not ported yet (ROADMAP Queue 1: integrators and multiple "
-            "shooting)")
+        """Integrate the ODE over one sample with fixed sub-steps (JAX
+        package: ``Model.simulate_step``); ``method`` selects the stepper
+        of ``ops/integrators.py`` ("euler", "rk4", "implicit_midpoint",
+        "trbdf2", "adaptive"). Free (slack) states are held at zero.
+
+        Batch-first, unlike the evaluation methods above: ``x_diff`` is
+        (..., n_diff), ``u`` (..., n_inputs) and ``p`` (..., n_params), the
+        variables on the LAST axis and the leading axes independent plants
+        (1-D arguments are one plant, as in the JAX package). Runs on the
+        device of ``x_diff``, in the floating dtype its arguments promote
+        to. Returns ``(x_next (..., n_diff), outputs (..., n_outputs))``."""
+        from agentlib_mpc_torch.ops.integrators import integrate
+
+        args = [torch.as_tensor(a) for a in (x_diff, u, p)]
+        dtype = functools.reduce(torch.promote_types,
+                                 (a.dtype for a in args))
+        if not dtype.is_floating_point:
+            dtype = torch.get_default_dtype()
+        device = args[0].device
+        x, u, p = (a.to(device=device, dtype=dtype) for a in args)
+        z = torch.zeros((self.n_free,), dtype=dtype, device=device)
+        u_v, p_v = u.movedim(-1, 0), p.movedim(-1, 0)
+
+        def f(xx, t):
+            return self.ode(xx.movedim(-1, 0), z, u_v, p_v, t).movedim(0, -1)
+
+        x_next = integrate(f, x, 0.0, dt, substeps=substeps, method=method)
+        y = self.output(x_next.movedim(-1, 0), z, u_v, p_v, dt)
+        return x_next, y.movedim(0, -1)
 
     # -- convenience ----------------------------------------------------------
 

@@ -20,12 +20,21 @@ as the TPU path does) or raises; it runs the plain PyTorch version
 the tensor it was given lies on the CPU. Each keeps a launch counter
 (``ldl_factor.launches``, ``ldl_solve.launches``).
 
-Routing. ``resolve_kkt_method("auto", size, device)`` replaces the JAX
-package's eager availability probe with a static size rule: on CUDA,
-"auto" is ``"ldl"`` when M <= ``MAX_M`` (240) and both kernels fit one
-block's opt-in shared memory (``shared_memory_per_block_optin``), else
-``"lu"``; on the CPU it is ``"lu"``, as the JAX package resolves off a
-TPU.
+Many right-hand sides. ``ldl_solve_many`` solves R right-hand sides
+against one factor (the stage sweep's ``C⁻¹ Eᵀ``). The kernel takes one
+system per right-hand side, so on CUDA the factor is expanded to R
+contiguous copies before one launch; ``ldl_solve_many.copied_bytes``
+counts the bytes of those copies.
+
+Routing. ``resolve_kkt_method("auto", size, device, partition,
+stage_min_size)`` replaces the JAX package's eager availability probes
+with a static rule: "auto" is ``"ldl"`` on CUDA when M <= ``MAX_M`` (240)
+and both kernels fit one block's opt-in shared memory
+(``shared_memory_per_block_optin``); otherwise ``"stage"`` when a stage
+partition of this size is attached and M >= ``stage_min_size`` (the
+block sweep of ``ops/stagewise.py``, whose blocks go through the same two
+kernels on CUDA); otherwise ``"lu"``. On the CPU "auto" is never
+``"ldl"``, as the JAX package resolves off a TPU.
 """
 
 from __future__ import annotations
@@ -266,9 +275,30 @@ def raw_launcher(name: str, *tensors: torch.Tensor):
     return launch
 
 
+def ldl_solve_many(LD: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve R right-hand sides against each factor: LD (..., M, M), B
+    (..., R, M) → X (..., R, M) with ``X[..., r, :] = (L D Lᵀ)⁻¹ B[..., r, :]``.
+    CPU: ``ldl_solve_plain`` with the factor broadcast over R. CUDA: the
+    factor is expanded to (..., R, M, M) and made contiguous (the solve
+    kernel takes one system per right-hand side; the copy's bytes add to
+    ``ldl_solve_many.copied_bytes``), then one ``ldl_solve`` launch."""
+    if LD.device.type == "cpu" and B.device.type == "cpu":
+        return ldl_solve_plain(LD.unsqueeze(-3), B)
+    _check_cuda_input(LD, "LD", 2)
+    R = B.shape[-2]
+    LDx = _as_f32(LD).unsqueeze(-3).expand(
+        LD.shape[:-2] + (R,) + LD.shape[-2:]).contiguous()
+    ldl_solve_many.copied_bytes += LDx.numel() * LDx.element_size()
+    return ldl_solve(LDx, B)
+
+
+ldl_solve_many.copied_bytes = 0
+
+
 def reset_launch_counts() -> None:
     ldl_factor.launches = 0
     ldl_solve.launches = 0
+    ldl_solve_many.copied_bytes = 0
 
 
 # --------------------------------------------------------------------------
@@ -321,18 +351,35 @@ def ldl_fits(size: int, device) -> bool:
         _smem_optin(dev)
 
 
-def resolve_kkt_method(method: str, size: int, device) -> str:
+def resolve_kkt_method(method: str, size: int, device, partition=None,
+                       stage_min_size: int = 192) -> str:
     """Resolve ``SolverOptions.kkt_method`` for a ``size``-dim KKT system on
-    ``device``: "auto" → "ldl" on CUDA when :func:`ldl_fits`, else "lu" (on
-    the CPU always "lu"). "ldl" and "lu" stand as given; forcing "ldl" on
-    the CPU runs the plain versions. "stage" is not ported yet."""
+    ``device``, statically (no probe, no fallback):
+
+    - "auto" → "ldl" on CUDA when :func:`ldl_fits`; else "stage" when
+      ``partition`` covers exactly ``size`` and ``size >= stage_min_size``;
+      else "lu";
+    - "stage" → "stage", and a ``ValueError`` without a matching
+      partition;
+    - "ldl" and "lu" stand as given; forcing "ldl" on the CPU runs the
+      plain versions."""
+    matches = partition is not None and partition.n_total == size
     if method == "auto":
-        return "ldl" if ldl_fits(size, device) else "lu"
+        if ldl_fits(size, device):
+            return "ldl"
+        if matches and size >= stage_min_size:
+            return "stage"
+        return "lu"
+    if method == "stage":
+        if not matches:
+            raise ValueError(
+                f"kkt_method='stage' requires a stage_partition matching "
+                f"the {size}-dim KKT system (got "
+                f"{None if partition is None else partition.n_total}); "
+                f"attach TranscribedOCP.stage_partition with "
+                f"solver.attach_stage_partition")
+        return "stage"
     if method in ("ldl", "lu"):
         return method
-    if method == "stage":
-        raise NotImplementedError(
-            "kkt_method='stage' needs ops/stagewise.py, which the port has "
-            "not ported yet (ROADMAP Queue 1: stage-structured path)")
     raise ValueError(f"kkt_method must be 'auto', 'ldl', 'lu' or 'stage', "
                      f"got {method!r}")

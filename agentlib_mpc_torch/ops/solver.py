@@ -28,11 +28,17 @@ after the JAX package's phases (``ipm.eval_jac``, ``ipm.assemble``,
 ``ipm.factor``, ``ipm.resolve``, ``ipm.line_search``), so a profile reads
 per phase; the rest is elementwise step arithmetic.
 
-Options this slice does not serve raise ``NotImplementedError``:
-``kkt_method="stage"``, ``jacobian="sparse"``, ``precision="mixed"`` /
-``"require"`` and ``fusion="require"``. "auto" values resolve as the JAX
-package does off a TPU: ``precision`` → "full", ``fused_ls_jacobian`` →
-"off"; ``kkt_method`` → see ``ops/kkt.resolve_kkt_method``.
+KKT paths. ``kkt_method`` resolves statically (``ops/kkt.
+resolve_kkt_method``): "ldl" is the dense LDLᵀ kernels, "stage" the
+block-tridiagonal sweep of ``ops/stagewise.py`` over the stage partition
+attached with :func:`attach_stage_partition` (the sweep's stage blocks go
+through the same two kernels on CUDA), "lu" pivoted LU. The factor carries
+its path's tag, so a resolve can never take another path than its factor.
+
+Options this port does not serve yet raise ``NotImplementedError``:
+``jacobian="sparse"``, ``precision="mixed"`` / ``"require"`` and
+``fusion="require"``. "auto" values resolve as the JAX package does off a
+TPU: ``precision`` → "full", ``fused_ls_jacobian`` → "off".
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from torch.profiler import record_function
 from torch.utils._pytree import tree_map
 
 from agentlib_mpc_torch.ops import kkt as kkt_ops
+from agentlib_mpc_torch.ops import stagewise as stage_ops
+from agentlib_mpc_torch.utils.device import resolve_device
 
 
 class NLPFunctions(NamedTuple):
@@ -80,8 +88,10 @@ class SolverOptions(NamedTuple):
     #: centrality clip for all dual variables (IPOPT kappa_sigma)
     kappa_sigma: float = 1e10
     #: KKT linear solver: "auto" → the LDLᵀ kernels on CUDA where the
-    #: system fits a block's shared memory, else pivoted LU; "ldl" / "lu"
-    #: force a path; "stage" is not ported yet
+    #: system fits a block's shared memory; else the stage sweep when a
+    #: matching ``stage_partition`` is attached and the system has at
+    #: least ``stage_min_size`` rows; else pivoted LU. "ldl" / "lu" /
+    #: "stage" force a path ("stage" requires a matching partition)
     kkt_method: str = "auto"
     #: evaluate values+Jacobians of ALL line-search candidates in the one
     #: batched trial call and select the accepted one; "auto" → "off"
@@ -89,8 +99,13 @@ class SolverOptions(NamedTuple):
     #: Mehrotra-style second-order corrector (one extra back-substitution
     #: per iteration against the same factor)
     corrector: bool = False
-    #: stage metadata (stage-structured path, not ported yet)
+    #: stage metadata of the transcribed OCP's KKT system
+    #: (``TranscribedOCP.stage_partition``, attached by
+    #: :func:`attach_stage_partition`); required by ``kkt_method="stage"``,
+    #: consulted by "auto"
     stage_partition: Any = None
+    #: "auto" crossover: smallest KKT dimension routed to the stage sweep
+    #: (the JAX package's, measured against dense LU)
     stage_min_size: int = 192
     #: derivative pipeline: "auto"/"dense" → dense; "sparse" not ported
     jacobian: str = "auto"
@@ -159,6 +174,48 @@ class _IPState(NamedTuple):
 
 # ---- option resolution ------------------------------------------------------
 
+def attach_stage_partition(options: SolverOptions,
+                           partition) -> SolverOptions:
+    """Attach a transcribed OCP's stage partition to solver options when
+    they could use it (``kkt_method`` "auto"/"stage" and none attached
+    yet)."""
+    if (partition is not None and options.stage_partition is None
+            and options.kkt_method in ("auto", "stage")):
+        return options._replace(stage_partition=partition)
+    return options
+
+
+def plan_worthwhile(options: SolverOptions, partition, device=None) -> bool:
+    """Would a stage-sparse derivative plan be used on ``device``? (The JAX
+    package's gate in front of stage-structure certification; pure logic
+    here.) True only when the sparse pipeline could be routed: ``jacobian``
+    not "dense", no plan attached yet, a partition exists, and — unless
+    "sparse" is forced — the fused line search is off, the size clears
+    ``jacobian_min_size`` and ``kkt_method`` resolves to the stage sweep
+    (on "auto": not the dense kernels, and at least ``stage_min_size``)."""
+    if options is None:
+        return False
+    if options.jacobian == "dense" or options.stage_jacobian_plan is not None:
+        return False
+    if partition is None:
+        return False
+    if options.jacobian == "sparse":
+        return True
+    if options.fused_ls_jacobian == "on":
+        return False
+    size = partition.n_total
+    if size < options.jacobian_min_size:
+        return False
+    if options.kkt_method == "stage":
+        return True
+    if options.kkt_method != "auto" or size < options.stage_min_size:
+        return False
+    dev = resolve_device(device)
+    return (kkt_ops.resolve_kkt_method("auto", size, dev, partition,
+                                       options.stage_min_size) == "stage"
+            and stage_ops.stage_method_available(partition, dev))
+
+
 def _resolve_precision(opts: SolverOptions) -> str:
     precision = opts.precision
     if precision not in ("auto", "f64", "mixed", "require"):
@@ -180,12 +237,8 @@ def _resolve_jacobian(opts: SolverOptions) -> str:
     if jac == "sparse":
         raise NotImplementedError(
             "jacobian='sparse' needs ops/stagejac.py, which the port has not "
-            "ported yet (ROADMAP Queue 1: stage-structured path)")
+            "ported yet (ROADMAP Queue 1: stagejac with the certifier)")
     return "dense"
-
-
-def _resolve_method(method: str, size: int, device) -> str:
-    return kkt_ops.resolve_kkt_method(method, size, device)
 
 
 # ---- KKT factor / resolve -----------------------------------------------------
@@ -208,9 +261,12 @@ def _resolve_kkt_lu(factor, rhs):
     return x * scale
 
 
-def _factor_kkt(K, method: str):
+def _factor_kkt(K, method: str, partition=None):
     """Factor once; the factor carries its method tag so the resolve path
     cannot diverge from the factor path."""
+    if method == "stage":
+        return ("stage", (stage_ops.factor_kkt_stage(K, partition),
+                          partition))
     if method == "ldl":
         return ("ldl", kkt_ops.factor_kkt_ldl(K))
     return ("lu", _factor_kkt_lu(K))
@@ -218,6 +274,9 @@ def _factor_kkt(K, method: str):
 
 def _resolve_kkt(factor, rhs):
     kind, f = factor
+    if kind == "stage":
+        stage_factor, partition = f
+        return stage_ops.resolve_kkt_stage(stage_factor, rhs, partition)
     if kind == "ldl":
         return kkt_ops.resolve_kkt_ldl(f, rhs)
     return _resolve_kkt_lu(f, rhs)
@@ -351,7 +410,9 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
 
     kkt_size = n + m_e if m_e else n
     jac_path = _resolve_jacobian(opts)
-    kkt_path = _resolve_method(opts.kkt_method, kkt_size, device)
+    kkt_path = kkt_ops.resolve_kkt_method(opts.kkt_method, kkt_size, device,
+                                          opts.stage_partition,
+                                          opts.stage_min_size)
     precision_path = _resolve_precision(opts)
     fused_ls = opts.fused_ls_jacobian == "on"
 
@@ -490,7 +551,7 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
             else:
                 K = W
         with record_function("ipm.factor"):
-            factor = _factor_kkt(K, kkt_path)
+            factor = _factor_kkt(K, kkt_path, opts.stage_partition)
 
         def newton_dir(rhs_w_k, mu_s, mu_L, mu_U):
             """Direction from the stored factor for (possibly per-entry)

@@ -9,6 +9,13 @@ budget, the warm ones a short budget warm-started in primal, duals and
 barrier. The JAX package runs the iterations in one ``lax.scan``; here it
 is a Python loop over the same per-iteration (budget, mu0) schedule.
 
+``horizon`` and ``dt`` set the zone OCP's horizon (default: the
+benchmark's N=10, dt=300 s). The OCP's stage partition is attached to the
+solver options as the JAX package's production form attaches it, so
+"auto" takes the stage sweep where the dense KKT no longer fits the LDLᵀ
+kernels: a day ahead at 15 min (N=96, dt=900 s) gives an 866×866 KKT of
+97 stages of 10, factored stage by stage on the kernels.
+
 The workload constants are copies of ``bench.py``'s (the port imports
 nothing of the JAX package or of ``bench.py``); a test holds them equal.
 """
@@ -24,6 +31,7 @@ from agentlib_mpc_torch.ops.admm import _masked_mean
 from agentlib_mpc_torch.ops.solver import (
     NLPFunctions,
     SolverOptions,
+    attach_stage_partition,
     solve_nlp_batched,
 )
 from agentlib_mpc_torch.ops.transcription import transcribe
@@ -52,29 +60,33 @@ def fleet_inputs(n_agents: int):
             np.linspace(*ZONE_LOAD_RANGE, n_agents))
 
 
-def zone_ocp():
-    """The per-zone OCP (61-variable degree-2 collocation NLP)."""
-    return transcribe(ZoneWithSupply(), ["mDot"], N=HORIZON, dt=DT,
+def zone_ocp(horizon: int = HORIZON, dt: float = DT):
+    """The per-zone OCP (degree-2 collocation; 61 variables at the default
+    N=10)."""
+    return transcribe(ZoneWithSupply(), ["mDot"], N=horizon, dt=dt,
                       method="collocation", collocation_degree=2)
 
 
 def build_step(n_agents: int = N_AGENTS, solver_overrides: dict | None = None,
                warm_budget: int = WARM_BUDGET,
                cold_budget: int = COLD_BUDGET, record_stats: bool = False,
-               device=None, dtype: torch.dtype = torch.float32):
+               device=None, dtype: torch.dtype = torch.float32,
+               horizon: int = HORIZON, dt: float = DT):
     """Return ``(step, args)``: ``step(*args)`` runs one control step.
 
     ``args = (x0s (n, 1), loads (n,), w (n, n_w), y (n, n_g), z (n, n_h),
     zbar (N, 1), lams (n, N, 1), rho ())``, the positional layout of the
     JAX package. ``step`` returns the carry ``(w, y, z, zbar, lams)``, or
     ``(carry, stats)`` with ``record_stats``: ``stats = (primal (I,),
-    dual (I,), iterations (I, n), success (I, n), kkt_error (I, n))``.
+    dual (I,), iterations (I, n), success (I, n), kkt_error (I, n),
+    kkt_path (I, n))``, the last indexing ``solver.KKT_PATHS``.
     """
     dev = resolve_device(device)
-    ocp = zone_ocp()
+    ocp = zone_ocp(horizon, dt)
     base_opts = dict(SOLVER_BASE)
     base_opts.update(solver_overrides or {})
-    opts = SolverOptions(**base_opts)
+    opts = attach_stage_partition(SolverOptions(**base_opts),
+                                  ocp.stage_partition)
     budgets = [cold_budget] + [warm_budget] * (ADMM_ITERS - 1)
     mu0s = [COLD_MU] + [WARM_MU] * (ADMM_ITERS - 1)
 
@@ -95,7 +107,7 @@ def build_step(n_agents: int = N_AGENTS, solver_overrides: dict | None = None,
         tail = torch.tensor(ZONE_D_ROW_TAIL, dtype=dtype, device=dev)
         d_row = torch.cat([loads[:, None], tail.expand(n, 2)], dim=-1)
         batched = theta0._replace(
-            x0=x0s, d_traj=d_row[:, None, :].expand(n, HORIZON, 3))
+            x0=x0s, d_traj=d_row[:, None, :].expand(n, horizon, 3))
         return batched._replace(**{
             k: v.expand((n,) + v.shape) for k, v in batched._asdict().items()
             if k not in ("x0", "d_traj")})
@@ -121,7 +133,8 @@ def build_step(n_agents: int = N_AGENTS, solver_overrides: dict | None = None,
                     torch.linalg.vector_norm(u - zbar_new),
                     torch.linalg.vector_norm(rho * (zbar_new - zbar)),
                     res.stats.iterations, res.stats.success,
-                    res.stats.kkt_error))
+                    res.stats.kkt_error,
+                    torch.full((n,), res.stats.kkt_path, device=dev)))
             zbar = zbar_new
         carry = (w_gs, y_gs, z_gs, zbar, lams)
         if not record_stats:
@@ -134,8 +147,8 @@ def build_step(n_agents: int = N_AGENTS, solver_overrides: dict | None = None,
     w_gs = ocp.initial_guess(theta0).expand(n_agents, ocp.n_w).clone()
     y_gs = torch.zeros((n_agents, ocp.n_g), dtype=dtype, device=dev)
     z_gs = torch.full((n_agents, ocp.n_h), 0.1, dtype=dtype, device=dev)
-    zbar = torch.full((HORIZON, 1), ZONE_ZBAR0, dtype=dtype, device=dev)
-    lams = torch.zeros((n_agents, HORIZON, 1), dtype=dtype, device=dev)
+    zbar = torch.full((horizon, 1), ZONE_ZBAR0, dtype=dtype, device=dev)
+    lams = torch.zeros((n_agents, horizon, 1), dtype=dtype, device=dev)
     rho = torch.tensor(ZONE_RHO0, dtype=dtype, device=dev)
     args = (x0s, loads, w_gs, y_gs, z_gs, zbar, lams, rho)
     return control_step, args

@@ -7,6 +7,8 @@ imports JAX:
 
     ocp_params_from_numpy({k: np.asarray(v) for k, v in
                            jax_theta._asdict().items()}, device, dtype)
+
+A stage partition crosses as its fields (``stage_partition_from_fields``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from agentlib_mpc_torch.ops.stagewise import StagePartition
 from agentlib_mpc_torch.ops.transcription import OCPParams
 from agentlib_mpc_torch.utils.device import resolve_device
 
@@ -44,6 +47,18 @@ def fleet_args_from_numpy(arrays: Sequence[np.ndarray], device=None,
     dev = resolve_device(device)
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
                  for a in arrays)
+
+
+def stage_partition_from_fields(partition) -> StagePartition:
+    """The port's :class:`StagePartition` from any object with the same
+    fields (``n_stages``, ``block``, ``n_w``, ``n_total``, ``perm``) or a
+    mapping of them, every value as plain Python ints."""
+    get = (partition.__getitem__ if isinstance(partition, Mapping)
+           else lambda k: getattr(partition, k))
+    return StagePartition(
+        n_stages=int(get("n_stages")), block=int(get("block")),
+        n_w=int(get("n_w")), n_total=int(get("n_total")),
+        perm=tuple(int(i) for i in get("perm")))
 
 
 def to_numpy(tree):

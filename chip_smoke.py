@@ -29,9 +29,28 @@ non-zero without printing a result:
 5. quality  — the same steps through the port in f64 with the plain
               versions on the CPU; the card's z̄ and consensus spread must
               agree within the stated tolerance.
+6. stage_kernels — both kernels against their plain versions (bitwise) at
+              the stage sweep's shapes: factor (256, 10) and (256, 5), solve
+              (2560, 10), (256, 10), (1280, 5) and (256, 5); device time
+              per launch, raw-launch events, bound, plain version and
+              library yardstick at each.
+7. long_horizon — the 256-zone step a day ahead (N=96, dt=900 s, KKT
+              866 of 97 stages of 10), "auto" routed to the stage sweep:
+              one cold and three warm steps in f32 with the launch counters
+              reset just before and read just after (launches must equal
+              97 factor and 1 254 solve launches per interior-point
+              iteration), a profiled warm step, then the quality gate: the
+              same steps in f64 on the card with kkt_method="lu" (and in
+              f32 with "lu", the dense path's own f32 round-off).
+8. shooting — 256 zones at N=96 by multiple shooting (rk4, 3 substeps;
+              KKT 386 of 97 stages of 5): one batched cold solve on the
+              stage sweep, held against the same solve in f64 with "lu"
+              on the card, then one plant step of every zone by
+              ``Model.simulate_step`` from the solved first control, held
+              against the same step in f64 on the CPU.
 
-Then the ``nvidia-smi`` line, the ``kernels`` JSON line and, last,
-``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
+Then the run's wall time, the ``nvidia-smi`` line, the ``kernels`` JSON
+line and, last, ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
 ``torch.cuda.is_available()`` is False. Imports nothing of JAX, of the JAX
 package or of ``bench.py``.
 """
@@ -73,6 +92,36 @@ RESIDUAL_TOL = 1e-3
 ZBAR_TOL = 2e-3
 SPREAD_TOL = 2e-3
 N_WARM = 3
+#: the stage sweep's kernel shapes (B, M): the factor of the stage blocks
+#: of 256 zones (collocation blocks of 10, shooting blocks of 5); the solve
+#: of ldl_solve_many's right-hand sides (10 per block of 10, 5 per block
+#: of 5) and of the block substitutions
+STAGE_FACTOR_SHAPES = ((256, 10), (256, 5))
+STAGE_SOLVE_SHAPES = ((2560, 10), (256, 10), (1280, 5), (256, 5))
+#: the day-ahead horizon: 96 intervals of 15 min
+LONG_N, LONG_DT = 96, 900.0
+#: f32 card (stage sweep) vs f64 card ("lu") of the day-ahead steps. z̄:
+#: slice 1's limit. The spread max|u − z̄|, a max over 256 × 96 controls,
+#: is set by the few lanes whose budget-limited solves stall (half the
+#: zones miss tol 1e-4 in the cold iteration's 10 steps; their f32 and f64
+#: iterates part by up to 0.04 in u while the median |Δu| is 1e-6). In the
+#: same steps f32 dense LU misses the f64 spread by up to 1.37e-2 (the
+#: lu32 rows below, PERF.md), so the limit is 2e-2 here, and the sweep is
+#: also held against f32 dense LU on z̄
+LONG_ZBAR_TOL = 2e-3
+LONG_SPREAD_TOL = 2e-2
+LONG_SWEEP_VS_DENSE_TOL = 1e-3
+#: multiple shooting: integrator, substeps, and the cold solve's budget
+SHOOT_INTEGRATOR, SHOOT_SUBSTEPS, SHOOT_MAX_ITER = "rk4", 3, 50
+#: f32 vs f64 of the shooting solve's first controls (range 0..0.05 m³/s)
+#: on the lanes both runs solve to tol 1e-4 (some zones of this fleet do
+#: not converge within the budget in either precision; their iterates are
+#: compared by nothing but finiteness), the share of solved lanes, and
+#: the plant step's temperatures (K, about 300): 10 rk4 sub-steps in f32
+#: at 300 K carry eps 6e-8 × 300 × 10 ≈ 2e-4 K
+SHOOT_U0_TOL = 1e-3
+SHOOT_SUCCESS_SHARE_TOL = 0.05
+PLANT_X_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -174,26 +223,45 @@ def phase_build():
         check(not spills, f"{name}: ptxas reports spills: {spills}")
 
 
-def device_ms(torch, fn, kernel: str, launches: int = 100) -> float:
+def device_ms(torch, fn, kernel: str, launches: int = 100,
+              attempts: int = 3) -> float:
     """Mean device time per launch of ``kernel`` over ``launches`` calls of
-    ``fn``, from torch.profiler's CUDA kernel events (sum / count)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``fn``, from torch.profiler's CUDA kernel events (sum / count) of one
+    profiled window that follows a warm-up window of as many calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    # CUPTI may miss a launch at the edge of the window: the mean is over
-    # the kernel events it saw, at least 90 % of the launches
-    check(len(spans) >= 0.9 * launches,
-          f"profiler saw {len(spans)} {kernel} events of {launches} launches")
-    return sum(spans) / len(spans) / 1e3
+    for attempt in range(attempts):
+        spans: list = []
+
+        def ready(prof, spans=spans):
+            spans.extend(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and kernel in e.name)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):          # the warm-up window, then the one
+                for _ in range(launches):   # measured
+                    fn()
+                    if attempt:
+                        torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                prof.step()
+        # the mean is over the kernel events the profiler saw, at least
+        # 90 % of the launches. Without the warm-up window CUPTI dropped
+        # about a tenth of the events of a 5 µs kernel on an H100; a
+        # window short of them is profiled again, each launch synchronised
+        # (which leaves a kernel's own device time as it is)
+        if len(spans) >= 0.9 * launches:
+            return sum(spans) / len(spans) / 1e3
+    raise RuntimeError(f"chip_smoke check failed: profiler saw {len(spans)} "
+                       f"{kernel} events of {launches} launches in each of "
+                       f"{attempts} windows")
 
 
 def bounds(B: int, M: int):
@@ -370,6 +438,7 @@ def spread(ocp, carry):
 
 def phase_slice(torch, dev):
     from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.ops.solver import KKT_PATHS
     from agentlib_mpc_torch.parallel.admm_step import (
         N_AGENTS, build_step, zone_ocp)
 
@@ -381,10 +450,12 @@ def phase_slice(torch, dev):
     totals = {"ldl_factor": kkt.ldl_factor.launches,
               "ldl_solve": kkt.ldl_solve.launches}
     ocp = zone_ocp()
-    carry, (prim, dual, iters, ok, _kkt) = outs[-1]
+    carry, (prim, dual, iters, ok, _kkt, _path) = outs[-1]
     for k, (nf, ns) in enumerate(launches):
         check(0 < nf <= 19 and 0 < ns <= 114,
               f"step {k}: {nf} factor / {ns} solve launches (limits 19/114)")
+        check(bool((outs[k][1][5] == KKT_PATHS.index("ldl")).all()),
+              f"step {k}: the slice did not run on the dense LDLᵀ path")
     finite = all(bool(torch.isfinite(t).all()) for t in carry)
     check(finite, "non-finite control-step output")
     sp = spread(ocp, carry)
@@ -404,7 +475,7 @@ def phase_slice(torch, dev):
     return outs, totals, ocp
 
 
-def phase_profile(torch, step, args, out, warm_ms):
+def phase_profile(torch, step, args, out, warm_ms, name="profile"):
     """One warm step under the profiler (not counted as main-path
     launches): device time by operator and the device's busy share of the
     unprofiled median warm step."""
@@ -448,7 +519,7 @@ def phase_profile(torch, step, args, out, warm_ms):
     rows = prof.key_averages()
     top_cpu = sorted(rows, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:8]
-    emit({"phase": "profile", "profiled_step_ms": wall_ms,
+    emit({"phase": name, "profiled_step_ms": wall_ms,
           "device_ms": device_ms if device_ms > 0 else None,
           "device_kernels": len(dev_events),
           "busy_share_of_median_warm_step":
@@ -485,6 +556,263 @@ def phase_quality(torch, outs32, ocp):
           "spread_tol": SPREAD_TOL, "steps": rows})
 
 
+def phase_stage_kernels(torch, dev):
+    """Both kernels against their plain versions at the stage sweep's
+    shapes (bitwise), and their times there."""
+    from agentlib_mpc_torch.ops import kkt
+
+    def batch(B, M, seed):
+        n = (M + 1) // 2 + 1
+        K_np, b_np = quasi_definite_batch(B, n, M - n, seed)
+        return (torch.as_tensor(K_np, dtype=torch.float32, device=dev),
+                torch.as_tensor(b_np, dtype=torch.float32, device=dev))
+
+    rows = {"ldl_factor": [], "ldl_solve": []}
+    for seed, (B, M) in enumerate(STAGE_FACTOR_SHAPES):
+        K, _ = batch(B, M, 100 + seed)
+        LD_plain = kkt.ldl_factor_plain(K)
+        err = float((kkt.ldl_factor(K) - LD_plain).abs().max())
+        check(err <= KERNEL_ABS_TOL, f"ldl_factor vs plain at {B}x{M}: {err}")
+        raw = kkt.raw_launcher("ldl_factor", K, torch.empty_like(K))
+        (bound, by), _ = bounds(B, M)
+        rows["ldl_factor"].append({
+            "shape": [B, M], "max_abs_err": err,
+            "device_ms": device_ms(torch, raw, "ldl_factor_kernel"),
+            "ms": time_ms(raw, 200),
+            "plain_ms": time_ms(lambda: kkt.ldl_factor_plain(K), 10),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.linalg.ldl_factor(K), 5, 1)})
+    for seed, (B, M) in enumerate(STAGE_SOLVE_SHAPES):
+        K, b = batch(B, M, 200 + seed)
+        LD = kkt.ldl_factor_plain(K)
+        err = float((kkt.ldl_solve(LD, b) - kkt.ldl_solve_plain(LD, b))
+                    .abs().max())
+        check(err <= KERNEL_ABS_TOL, f"ldl_solve vs plain at {B}x{M}: {err}")
+        raw = kkt.raw_launcher("ldl_solve", LD, b, torch.empty_like(b))
+        LDlib, piv = torch.linalg.ldl_factor(K)
+        _, (bound, by) = bounds(B, M)
+        rows["ldl_solve"].append({
+            "shape": [B, M], "max_abs_err": err,
+            "device_ms": device_ms(torch, raw, "ldl_solve_kernel"),
+            "ms": time_ms(raw, 200),
+            "plain_ms": time_ms(lambda: kkt.ldl_solve_plain(LD, b), 10),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(
+                lambda: torch.linalg.ldl_solve(LDlib, piv, b[..., None]),
+                5, 1)})
+    emit({"phase": "stage_kernels", **rows})
+    return rows
+
+
+def ip_iterations(stats) -> int:
+    """Interior-point iterations the batched loop ran over one step: per
+    ADMM iteration the slowest lane's count."""
+    return int(stats[2].max(dim=1).values.sum())
+
+
+def phase_long_horizon(torch, dev, smi):
+    """The 256-zone step a day ahead, "auto" on the stage sweep."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.ops.solver import KKT_PATHS
+    from agentlib_mpc_torch.parallel.admm_step import (
+        N_AGENTS, build_step, zone_ocp)
+
+    ocp = zone_ocp(LONG_N, LONG_DT)
+    part = ocp.stage_partition
+    size = ocp.n_w + ocp.n_g
+    check(kkt.resolve_kkt_method("auto", size, dev, part) == "stage",
+          f"auto does not resolve to stage at KKT {size}")
+    step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
+                            record_stats=True, horizon=LONG_N, dt=LONG_DT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    totals = {"ldl_factor": kkt.ldl_factor.launches,
+              "ldl_solve": kkt.ldl_solve.launches}
+    copied = kkt.ldl_solve_many.copied_bytes
+    peak = torch.cuda.max_memory_allocated(dev)
+    stage = KKT_PATHS.index("stage")
+    per_step = []
+    for k, (out, (nf, ns)) in enumerate(zip(outs, launches)):
+        stats = out[1]
+        check(bool((stats[5] == stage).all()),
+              f"step {k}: kkt_path is not 'stage' on every lane")
+        ip = ip_iterations(stats)
+        # S factor launches per interior-point iteration; S-1 many-rhs
+        # solves in the factor sweep plus (2S-1) solves x (1 + 2
+        # refinement steps) x (predictor, corrector) in the resolves
+        S = part.n_stages
+        check(nf == S * ip and ns == ((S - 1) + (2 * S - 1) * 3 * 2) * ip,
+              f"step {k}: {nf} factor / {ns} solve launches for {ip} "
+              f"interior-point iterations")
+        per_step.append({"ip_iterations": ip, "factor_launches": nf,
+                         "solve_launches": ns})
+    check(totals["ldl_factor"] > 0 and totals["ldl_solve"] > 0,
+          "the long-horizon path launched no kernel")
+    carry, stats = outs[-1]
+    check(all(bool(torch.isfinite(t).all()) for t in carry),
+          "non-finite long-horizon output")
+    warm_ms = float(np.median(ms[1:]))
+    emit({"phase": "long_horizon", "zones": N_AGENTS, "horizon": LONG_N,
+          "dt": LONG_DT, "kkt_size": size, "stages": part.n_stages,
+          "block": part.block, "dtype": "float32", "kkt_path": "stage",
+          "cold_step_ms": ms[0], "warm_step_ms": ms[1:],
+          "warm_step_ms_median": warm_ms, "per_step": per_step,
+          "launches": totals,
+          "many_rhs_copy_bytes_per_step": copied / len(outs),
+          "ip_iterations_per_admm_iteration_max":
+              stats[2].max(dim=1).values.tolist(),
+          "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
+          "spread": spread(ocp, carry), "peak_memory_bytes": peak,
+          "nvidia_smi": smi})
+    phase_profile(torch, step, args, outs[-1], warm_ms,
+                  name="long_horizon_profile")
+
+    # quality gate: the same steps in f64 on the card through pivoted LU,
+    # and in f32 through dense LU (the f32 round-off of the dense path)
+    refs, seconds = {}, {}
+    for name, dtype in (("f64", torch.float64), ("lu32", torch.float32)):
+        step_r, args_r = build_step(N_AGENTS, {"kkt_method": "lu"},
+                                    device=dev, dtype=dtype,
+                                    record_stats=True, horizon=LONG_N,
+                                    dt=LONG_DT)
+        t0 = time.perf_counter()
+        refs[name], _, _ = run_steps(torch, step_r, args_r,
+                                     torch.cuda.synchronize)
+        seconds[name] = time.perf_counter() - t0
+    rows = []
+    for k, (o32, o64, olu) in enumerate(zip(outs, refs["f64"],
+                                            refs["lu32"])):
+        c32, c64, clu = (tuple(t.double() for t in o[0])
+                         for o in (o32, o64, olu))
+        for o in (o64, olu):
+            check(bool((o[1][5] == KKT_PATHS.index("lu")).all()),
+                  "a reference did not run on LU")
+        check(all(bool(torch.isfinite(t).all()) for t in c64),
+              f"non-finite f64 long-horizon reference at step {k}")
+        row = {"step": k, "zbar_max_abs_diff": float((c32[3] - c64[3])
+                                                     .abs().max()),
+               "spread_diff": abs(spread(ocp, c32) - spread(ocp, c64)),
+               "spread_f64": spread(ocp, c64),
+               "lu32_zbar_max_abs_diff": float((clu[3] - c64[3])
+                                               .abs().max()),
+               "lu32_spread_diff": abs(spread(ocp, clu) - spread(ocp, c64)),
+               "zbar_stage_vs_lu32": float((c32[3] - clu[3]).abs().max())}
+        du = (ocp.unflatten(c32[0])["u"] - ocp.unflatten(c64[0])["u"]).abs()
+        row.update(u_max_abs_diff=float(du.max()),
+                   u_median_abs_diff=float(du.median()))
+        rows.append(row)
+        check(row["zbar_max_abs_diff"] <= LONG_ZBAR_TOL,
+              f"long horizon step {k}: z̄ differs from f64 by "
+              f"{row['zbar_max_abs_diff']}")
+        check(row["spread_diff"] <= LONG_SPREAD_TOL,
+              f"long horizon step {k}: spread differs from f64 by "
+              f"{row['spread_diff']}")
+        check(row["zbar_stage_vs_lu32"] <= LONG_SWEEP_VS_DENSE_TOL,
+              f"long horizon step {k}: z̄ of the sweep differs from f32 "
+              f"dense LU by {row['zbar_stage_vs_lu32']}")
+    emit({"phase": "long_horizon_quality",
+          "reference": "f64 lu on the card; f32 lu on the card (lu32)",
+          "seconds": seconds, "zbar_tol": LONG_ZBAR_TOL,
+          "spread_tol": LONG_SPREAD_TOL,
+          "sweep_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL, "steps": rows})
+    return totals
+
+
+def phase_shooting(torch, dev):
+    """256 zones a day ahead by multiple shooting on the stage sweep, then
+    one plant step of every zone."""
+    from agentlib_mpc_torch.models.zoo import ZoneWithSupply
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.ops.solver import (
+        KKT_PATHS, SolverOptions, attach_stage_partition, solve_nlp_batched)
+    from agentlib_mpc_torch.ops.transcription import transcribe
+    from agentlib_mpc_torch.parallel.admm_step import (
+        N_AGENTS, SOLVER_BASE, ZONE_D_ROW_TAIL, fleet_inputs)
+
+    model = ZoneWithSupply()
+    ocp = transcribe(model, ["mDot"], N=LONG_N, dt=LONG_DT,
+                     method="multiple_shooting", integrator=SHOOT_INTEGRATOR,
+                     integrator_substeps=SHOOT_SUBSTEPS)
+    x0s_np, loads_np = fleet_inputs(N_AGENTS)
+
+    def solve(dtype, overrides):
+        theta0 = ocp.default_params(device=dev, dtype=dtype)
+        x0s = torch.as_tensor(x0s_np, dtype=dtype, device=dev)[:, None]
+        loads = torch.as_tensor(loads_np, dtype=dtype, device=dev)
+        tail = torch.tensor(ZONE_D_ROW_TAIL, dtype=dtype, device=dev)
+        d_row = torch.cat([loads[:, None], tail.expand(N_AGENTS, 2)], -1)
+        theta = theta0._replace(
+            x0=x0s, d_traj=d_row[:, None, :].expand(N_AGENTS, LONG_N, 3),
+            **{k: v.expand((N_AGENTS,) + v.shape)
+               for k, v in theta0._asdict().items()
+               if k not in ("x0", "d_traj")})
+        lb, ub = torch.func.vmap(ocp.bounds)(theta)
+        w0 = torch.func.vmap(ocp.initial_guess)(theta)
+        opts = attach_stage_partition(
+            SolverOptions(**{**SOLVER_BASE, "max_iter": SHOOT_MAX_ITER,
+                             **overrides}), ocp.stage_partition)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_nlp_batched(ocp.nlp, w0, theta, lb, ub, opts)
+        torch.cuda.synchronize()
+        return res, theta, (time.perf_counter() - t0) * 1e3
+
+    kkt.reset_launch_counts()
+    res, theta, solve_ms = solve(torch.float32, {})
+    totals = {"ldl_factor": kkt.ldl_factor.launches,
+              "ldl_solve": kkt.ldl_solve.launches}
+    check(res.stats.kkt_path == KKT_PATHS.index("stage"),
+          "the shooting solve did not run on the stage sweep")
+    check(totals["ldl_factor"] > 0 and totals["ldl_solve"] > 0,
+          "the shooting path launched no kernel")
+    check(bool(torch.isfinite(res.w).all()), "non-finite shooting solution")
+    res64, _, solve64_ms = solve(torch.float64, {"kkt_method": "lu"})
+    check(res64.stats.kkt_path == KKT_PATHS.index("lu"),
+          "the f64 shooting reference did not run on LU")
+    u0 = ocp.unflatten(res.w)["u"][:, 0]                         # (n, 1)
+    u0_64 = ocp.unflatten(res64.w)["u"][:, 0]
+    solved = res.stats.success & res64.stats.success
+    share32 = float(res.stats.success.double().mean())
+    share64 = float(res64.stats.success.double().mean())
+    check(bool(solved.any()), "no lane solved in both precisions")
+    check(abs(share32 - share64) <= SHOOT_SUCCESS_SHARE_TOL,
+          f"solved share f32 {share32} vs f64 {share64}")
+    du0 = float((u0.double() - u0_64).abs()[solved].max())
+    du0_all = float((u0.double() - u0_64).abs().max())
+    check(du0 <= SHOOT_U0_TOL,
+          f"shooting u0 differs from f64 by {du0} on solved lanes")
+
+    # one plant step of every zone from its solved first control
+    d0 = theta.d_traj[:, 0]                                      # (n, 3)
+    u_full = torch.cat([u0, d0], dim=-1)                         # (n, 4)
+    p = theta.p[0]
+    x0s = theta.x0
+    x_next, y = model.simulate_step(x0s, u_full, p, LONG_DT)
+    x_ref, _ = model.simulate_step(x0s.double().cpu(), u_full.double().cpu(),
+                                   p.double().cpu(), LONG_DT)
+    dx = float((x_next.double().cpu() - x_ref).abs().max())
+    check(bool(torch.isfinite(x_next).all()) and x_next.shape == x0s.shape
+          and y.shape == (N_AGENTS, len(model.output_names)),
+          "plant step: non-finite or misshapen output")
+    check(dx <= PLANT_X_TOL, f"plant step differs from f64 by {dx} K")
+    emit({"phase": "shooting", "zones": N_AGENTS, "horizon": LONG_N,
+          "integrator": SHOOT_INTEGRATOR, "substeps": SHOOT_SUBSTEPS,
+          "kkt_size": ocp.n_w + ocp.n_g,
+          "stages": ocp.stage_partition.n_stages,
+          "block": ocp.stage_partition.block, "kkt_path": "stage",
+          "solve_ms": solve_ms, "solve64_lu_ms": solve64_ms,
+          "ip_iterations_max": int(res.stats.iterations.max()),
+          "lane_success_fraction": share32,
+          "lane_success_fraction_f64": share64,
+          "launches": totals, "u0_max_abs_diff_f64_solved": du0,
+          "u0_max_abs_diff_f64_all_lanes": du0_all,
+          "u0_tol": SHOOT_U0_TOL, "plant_x_max_abs_diff_f64": dx,
+          "plant_x_tol": PLANT_X_TOL})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -492,16 +820,25 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = phase_env(torch)
     phase_build()
     kernels = phase_kernels(torch, dev)
-    outs, totals, ocp = phase_slice(torch, dev)
+    outs, slice_totals, ocp = phase_slice(torch, dev)
     phase_quality(torch, outs, ocp)
+    stage_rows = phase_stage_kernels(torch, dev)
+    by_path = {"slice": slice_totals,
+               "long_horizon": phase_long_horizon(torch, dev, smi),
+               "shooting": phase_shooting(torch, dev)}
     for k in kernels:
-        k["launches"] = totals[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main "
-              f"path")
+        k["launches_by_path"] = {path: totals[k["name"]]
+                                 for path, totals in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        for path, n in k["launches_by_path"].items():
+            check(n > 0, f"{k['name']} never launched on the {path} path")
+        k["stage_shapes"] = stage_rows[k["name"]]
+    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

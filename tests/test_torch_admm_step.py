@@ -5,9 +5,12 @@ versions): one cold step and one warm step through both packages must give
 equal per-lane interior-point iteration counts and agree on w, y, z, z̄ and
 the multipliers to 1e-8 relative (the solves are identical algorithms; the
 tolerance covers f64 round-off carried through 2 x 10 ADMM iterations).
-Also: the ADMM operators against ``agentlib_mpc_tpu/ops/admm.py``, the
-copied workload constants against ``bench.py``, and the numpy carriers of
-``utils/convert.py``.
+The same at a short horizon (N=3, dt=900 s) with two zones on the stage
+sweep (``kkt_method="stage"``, each package's own partition passed in the
+solver overrides; ``bench.HORIZON``/``bench.DT`` monkeypatched, which
+``bench.build_step`` reads at call time). Also: the ADMM operators against
+``agentlib_mpc_tpu/ops/admm.py``, the copied workload constants against
+``bench.py``, and the numpy carriers of ``utils/convert.py``.
 """
 
 import jax.numpy as jnp
@@ -136,3 +139,61 @@ def test_consensus_update_matches_jax(masked):
                                            jnp.asarray(zbar),
                                            jnp.asarray(lam[0]), 0.7)),
         rtol=1e-12)
+
+
+STAGE_ZONES, STAGE_N, STAGE_DT = 2, 3, 900.0
+
+
+@pytest.fixture(scope="module")
+def stage_steps():
+    """One cold + one warm control step at N=3 on the stage sweep through
+    each package."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(bench, "HORIZON", STAGE_N)
+    mp.setattr(bench, "DT", STAGE_DT)
+    try:
+        jpart = bench.zone_ocp().stage_partition
+        jstep, jargs = bench.build_step(
+            STAGE_ZONES, {"kkt_method": "stage", "stage_partition": jpart},
+            record_stats=True)
+        jout, jstats = jstep(*jargs)
+        jout2, jstats2 = bench.warm_step(jstep, jargs, jout)
+    finally:
+        mp.undo()
+    tpart = admm_step.zone_ocp(STAGE_N, STAGE_DT).stage_partition
+    step, args = admm_step.build_step(
+        STAGE_ZONES, {"kkt_method": "stage", "stage_partition": tpart},
+        device="cpu", dtype=F64, record_stats=True, horizon=STAGE_N,
+        dt=STAGE_DT)
+    for a, b in zip(args, jargs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    out, stats = step(*args)
+    out2, stats2 = admm_step.warm_step(step, args, out)
+    return ((jout, jstats), (jout2, jstats2)), ((out, stats), (out2, stats2))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["cold", "warm"])
+def test_stage_control_step_matches_bench(stage_steps, which):
+    from agentlib_mpc_torch.ops.solver import KKT_PATHS
+
+    (jout, jstats), (out, stats) = stage_steps[0][which], \
+        stage_steps[1][which]
+    assert bool((stats[5] == KKT_PATHS.index("stage")).all())
+    np.testing.assert_array_equal(stats[2].numpy(), np.asarray(jstats[2]))
+    np.testing.assert_array_equal(stats[3].numpy(), np.asarray(jstats[3]))
+    for name, a, b in zip(("w", "y", "z", "zbar", "lams"), jout, out):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=RTOL,
+                                   atol=RTOL * np.abs(a).max(), err_msg=name)
+
+
+def test_default_horizon_keeps_the_dense_paths():
+    """At N=10 the attached partition changes nothing: KKT 92 is below
+    stage_min_size, so "auto" stays LU on the CPU."""
+    step, args = admm_step.build_step(2, device="cpu", dtype=F64,
+                                      record_stats=True, cold_budget=1)
+    from agentlib_mpc_torch.ops.solver import KKT_PATHS
+
+    _, stats = step(*args)
+    assert bool((stats[5] == KKT_PATHS.index("lu")).all())
+    assert admm_step.zone_ocp().stage_partition.n_total == 92

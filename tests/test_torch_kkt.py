@@ -161,14 +161,20 @@ def test_wrappers_run_plain_on_cpu_without_launching():
 
 
 def test_auto_routing_rule_on_cpu():
-    """Off the card "auto" is LU (as the JAX package resolves off a TPU);
-    forcing "ldl" stands; "stage" is not ported and raises."""
+    """Off the card "auto" is LU below stage_min_size (as the JAX package
+    resolves off a TPU); forcing "ldl" stands; "stage" needs a matching
+    stage partition and raises without one."""
+    from agentlib_mpc_torch.ops.stagewise import build_stage_partition
+
     assert kkt.resolve_kkt_method("auto", 92, "cpu") == "lu"
     assert kkt.resolve_kkt_method("ldl", 92, "cpu") == "ldl"
     assert kkt.resolve_kkt_method("lu", 92, "cpu") == "lu"
     assert not kkt.ldl_fits(92, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="stage_partition"):
         kkt.resolve_kkt_method("stage", 92, "cpu")
+    part = build_stage_partition(10, 1, 1, 1, 2, "collocation")
+    assert kkt.resolve_kkt_method("stage", 92, "cpu", part) == "stage"
+    assert kkt.resolve_kkt_method("auto", 92, "cpu", part) == "lu"
     with pytest.raises(ValueError):
         kkt.resolve_kkt_method("cholesky", 92, "cpu")
 

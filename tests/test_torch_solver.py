@@ -217,7 +217,7 @@ def test_batched_lanes_finishing_at_different_iterations():
 
 
 @pytest.mark.parametrize("override,exc", [
-    ({"kkt_method": "stage"}, NotImplementedError),
+    ({"kkt_method": "stage"}, ValueError),
     ({"jacobian": "sparse"}, NotImplementedError),
     ({"precision": "mixed"}, NotImplementedError),
     ({"precision": "require"}, NotImplementedError),
@@ -249,3 +249,56 @@ def test_auto_options_resolve_as_off_tpu():
     assert res.stats.precision_path == tsolver.PRECISION_PATHS.index("full")
     assert res.stats.jac_path == tsolver.JAC_PATHS.index("dense")
     np.testing.assert_allclose(res.w.numpy(), [0.5, 0.5], atol=1e-6)
+
+
+def _zone_problem(N, method="collocation"):
+    """The zone OCP at horizon N (dt 900 s) in both packages, with one
+    zone's parameters made in numpy: (jax ocp, port ocp, jax theta, port
+    theta)."""
+    from agentlib_mpc_tpu.models.zoo import ZoneWithSupply as JZone
+    from agentlib_mpc_tpu.ops.transcription import transcribe as jtranscribe
+    from agentlib_mpc_torch.models.zoo import ZoneWithSupply as TZone
+    from agentlib_mpc_torch.ops.transcription import transcribe
+    from agentlib_mpc_torch.utils.convert import ocp_params_from_numpy
+
+    kw = {"collocation_degree": 2} if method == "collocation" else {}
+    jocp = jtranscribe(JZone(), ["mDot"], N=N, dt=900.0, method=method, **kw)
+    tocp = transcribe(TZone(), ["mDot"], N=N, dt=900.0, method=method, **kw)
+    rng = np.random.default_rng(N)
+    d = np.stack([rng.uniform(80.0, 250.0, size=N), np.full(N, 290.15),
+                  np.full(N, 294.15)], -1)
+    jth = jocp.default_params(x0=jnp.asarray([297.5]), d_traj=jnp.asarray(d))
+    tth = ocp_params_from_numpy({k: np.asarray(v) for k, v in
+                                 jth._asdict().items()}, "cpu", F64)
+    return jocp, tocp, jth, tth
+
+
+@pytest.mark.parametrize("N,method,kkt_method", [
+    (6, "collocation", "stage"), (22, "collocation", "auto")],
+    ids=["colloc-N6-stage", "colloc-N22-auto"])
+def test_stage_path_matches_jax(N, method, kkt_method):
+    """solve_nlp on the stage sweep, forced at N=6 and chosen by "auto" at
+    N=22 (KKT 200 >= stage_min_size), each package with its own partition
+    attached: equal iteration counts and factor path, and w, y, z to 1e-8
+    of their scale (f64 round-off through the sweep's 2S-1 block solves
+    per resolve and some 20 Newton steps)."""
+    jocp, tocp, jth, tth = _zone_problem(N, method)
+    opts = dict(tol=1e-4, max_iter=30, corrector=True, kkt_method=kkt_method)
+    jopts = jsolver.attach_stage_partition(jsolver.SolverOptions(**opts),
+                                           jocp.stage_partition)
+    topts = tsolver.attach_stage_partition(tsolver.SolverOptions(**opts),
+                                           tocp.stage_partition)
+    lb, ub = jocp.bounds(jth)
+    jres = jsolver.solve_nlp(jocp.nlp, jocp.initial_guess(jth), jth, lb, ub,
+                             jopts)
+    tlb, tub = tocp.bounds(tth)
+    tres = tsolver.solve_nlp(tocp.nlp, tocp.initial_guess(tth), tth, tlb,
+                             tub, topts)
+    assert jsolver.kkt_path_name(jres.stats.kkt_path) == "stage"
+    assert tsolver.KKT_PATHS[tres.stats.kkt_path] == "stage"
+    assert bool(tres.stats.success) == bool(jres.stats.success)
+    assert int(tres.stats.iterations) == int(jres.stats.iterations)
+    for name in ("w", "y", "z"):
+        a = np.asarray(getattr(jres, name))
+        np.testing.assert_allclose(getattr(tres, name).numpy(), a, rtol=1e-8,
+                                   atol=1e-8 * np.abs(a).max(), err_msg=name)

@@ -1,10 +1,12 @@
-"""The port's model and collocation transcription against the JAX package.
+"""The port's model and transcriptions against the JAX package.
 
 Everything in float64 on the CPU: same inputs (made with numpy from a
 seed), values compared to 1e-12 relative (round-off of a different
 summation order), Jacobians from ``torch.func.jacrev`` against
-``jax.jacrev``. The transcription under test is the benchmark's zone OCP
-(``bench.zone_ocp``: ZoneWithSupply, degree-2 Radau collocation, N=10).
+``jax.jacrev``. The transcriptions under test are the benchmark's zone OCP
+(``bench.zone_ocp``: ZoneWithSupply, degree-2 Radau collocation, N=10) and
+the same zone by multiple shooting (N=4, dt=900 s, 3 integrator steps per
+interval).
 """
 
 import jax
@@ -139,12 +141,6 @@ def test_objective_terms_and_output_chains_match():
             _close(tt[k], jt[k])
 
 
-def test_model_simulate_step_names_the_missing_port():
-    with pytest.raises(NotImplementedError, match="integrators"):
-        zoo.ZoneWithSupply().simulate_step(torch.zeros(1), torch.zeros(4),
-                                           torch.zeros(4), 300.0)
-
-
 def test_zone_ocp_sizes_and_flat_layout(ocps):
     """n_w/n_g/n_h of the benchmark zone and the ravel_pytree key order
     u (10), x (11), xc (20), z (20)."""
@@ -164,14 +160,6 @@ def test_zone_ocp_sizes_and_flat_layout(ocps):
     batched = tocp.unflatten(torch.as_tensor(np.stack([w, -w])))
     assert batched["xc"].shape == (2, 10, 2, 1)
     np.testing.assert_array_equal(tocp.flatten(batched)[1].numpy(), -w)
-
-
-def test_multiple_shooting_names_the_missing_port():
-    from agentlib_mpc_torch.ops.transcription import transcribe
-
-    with pytest.raises(NotImplementedError, match="integrators"):
-        transcribe(zoo.ZoneWithSupply(), ["mDot"], N=4, dt=300.0,
-                   method="multiple_shooting")
 
 
 @pytest.mark.parametrize("fn", ["f", "g", "h"])
@@ -207,3 +195,99 @@ def test_default_params_match(ocps):
     for k in jp._fields:
         _close(getattr(tp, k), getattr(jp, k), rtol=0)
     assert tp.x0.dtype == F64 and tp.x0.device.type == "cpu"
+
+
+# ---- multiple shooting -------------------------------------------------------
+
+SHOOT_N = 4
+
+
+def _shooting_pair(integrator="rk4"):
+    from agentlib_mpc_tpu.ops.transcription import transcribe as jtranscribe
+    from agentlib_mpc_torch.ops.transcription import transcribe
+
+    kw = dict(N=SHOOT_N, dt=900.0, method="multiple_shooting",
+              integrator=integrator, integrator_substeps=3)
+    return (jtranscribe(jzoo.ZoneWithSupply(), ["mDot"], **kw),
+            transcribe(zoo.ZoneWithSupply(), ["mDot"], **kw))
+
+
+@pytest.fixture(scope="module")
+def shooting():
+    """Both shooting transcriptions and a random point (w, θ) in both
+    forms."""
+    jocp, tocp = _shooting_pair()
+    rng = np.random.default_rng(17)
+    theta_j = jocp.default_params(
+        x0=jnp.asarray([rng.uniform(294.0, 300.0)]),
+        d_traj=jnp.stack([jnp.asarray(rng.uniform(80, 250, size=SHOOT_N)),
+                          jnp.full(SHOOT_N, 290.15),
+                          jnp.full(SHOOT_N, 294.15)], -1),
+        t0=jnp.asarray(1800.0))
+    theta_t = ocp_params_from_numpy(
+        {k: np.asarray(v) for k, v in theta_j._asdict().items()}, "cpu", F64)
+    lb, ub = jocp.bounds(theta_j)
+    w = np.asarray(lb) + rng.uniform(0.1, 0.9, size=jocp.n_w) * np.minimum(
+        np.asarray(ub) - np.asarray(lb), 20.0)
+    return jocp, tocp, w, theta_j, theta_t
+
+
+def test_shooting_sizes_layout_and_partition(shooting):
+    """Sizes, the flat key order u, x, z (no collocation states) and the
+    stage partition (KKT n_w + n_g, blocks of 5) equal the JAX package's."""
+    jocp, tocp, _, _, _ = shooting
+    assert (tocp.n_w, tocp.n_g, tocp.n_h) == (jocp.n_w, jocp.n_g, jocp.n_h)
+    w = np.arange(tocp.n_w, dtype=np.float64)
+    jparts = jocp.unflatten(jnp.asarray(w))
+    tparts = tocp.unflatten(torch.as_tensor(w))
+    assert list(tparts) == ["u", "x", "z"]
+    for k in tparts:
+        np.testing.assert_array_equal(tparts[k].numpy(),
+                                      np.asarray(jparts[k]))
+    np.testing.assert_array_equal(tocp.flatten(tparts).numpy(), w)
+    assert tuple(tocp.stage_partition) == tuple(jocp.stage_partition)
+    assert tocp.stage_partition.block == 5
+    assert tocp.stage_partition.n_total == tocp.n_w + tocp.n_g
+
+
+def test_collocation_partition_matches_jax(ocps):
+    jocp, tocp = ocps
+    assert tuple(tocp.stage_partition) == tuple(jocp.stage_partition)
+    assert tocp.stage_partition.n_total == tocp.n_w + tocp.n_g == 92
+
+
+@pytest.mark.parametrize("fn", ["f", "g", "h"])
+def test_shooting_values_and_jacobians_match(shooting, fn):
+    jocp, tocp, w, theta_j, theta_t = shooting
+    jf = getattr(jocp.nlp, fn)
+    tf = getattr(tocp.nlp, fn)
+    wt = torch.as_tensor(w, dtype=F64)
+    _close(tf(wt, theta_t), jf(jnp.asarray(w), theta_j))
+    _close(jacrev(tf)(wt, theta_t), jax.jacrev(jf)(jnp.asarray(w), theta_j))
+
+
+@pytest.mark.parametrize("integrator", ["euler", "implicit_midpoint"])
+def test_shooting_defects_with_other_integrators(shooting, integrator):
+    """The defects through the explicit Euler and the implicit midpoint
+    steppers (Newton solves inside the constraint function) and their
+    Jacobians."""
+    jocp, tocp = _shooting_pair(integrator)
+    _, _, w, theta_j, theta_t = shooting
+    wt = torch.as_tensor(w, dtype=F64)
+    _close(tocp.nlp.g(wt, theta_t), jocp.nlp.g(jnp.asarray(w), theta_j))
+    _close(jacrev(tocp.nlp.g)(wt, theta_t),
+           jax.jacrev(jocp.nlp.g)(jnp.asarray(w), theta_j), rtol=1e-10)
+
+
+def test_shooting_bounds_guess_shift_and_trajectories_match(shooting):
+    jocp, tocp, w, theta_j, theta_t = shooting
+    for a, b in zip(tocp.bounds(theta_t), jocp.bounds(theta_j)):
+        _close(a, b, rtol=0)
+    _close(tocp.initial_guess(theta_t), jocp.initial_guess(theta_j), rtol=0)
+    _close(tocp.shift_guess(torch.as_tensor(w), theta_t),
+           jocp.shift_guess(jnp.asarray(w), theta_j), rtol=0)
+    tj = jocp.trajectories(jnp.asarray(w), theta_j)
+    tt = to_numpy(tocp.trajectories(torch.as_tensor(w), theta_t))
+    assert set(tt) == set(tj)
+    for k in tj:
+        _close(tt[k], tj[k])
