@@ -5,8 +5,11 @@ The port mirrors the JAX package's layout (``models/``, ``ops/``,
 counterpart in the tests. It imports ``torch`` and numpy only, never
 ``jax`` and nothing of ``agentlib_mpc_tpu``.
 
-Slice 1 covers the 256-zone consensus-ADMM control step: the model zoo,
-degree-d collocation, the batch-first interior-point solver, the consensus
+It covers the 256-zone consensus-ADMM control step of ``bench.py`` for
+the zone and the linear fleet: the model zoo, collocation and multiple
+shooting with the integrators, the batch-first interior-point solver with
+its dense, stage-sweep and stage-sparse paths, the Mehrotra QP fast path,
+the certifiers that route both fast paths (``lint/fx``), the consensus
 update and the two hand-written Hopper kernels of ``ops/kkt.py`` (the
 pivot-free LDLᵀ factor and solve, ``csrc/``).
 

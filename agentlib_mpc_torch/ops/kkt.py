@@ -18,7 +18,8 @@ wrapper runs its kernel on a CUDA tensor (in float32, casting in and out,
 as the TPU path does) or raises; it runs the plain PyTorch version
 (``ldl_factor_plain``/``ldl_solve_plain``, in the input dtype) only because
 the tensor it was given lies on the CPU. Each keeps a launch counter
-(``ldl_factor.launches``, ``ldl_solve.launches``).
+(``ldl_factor.launches``, ``ldl_solve.launches``) and the set of (B, M)
+batch shapes it launched at (``.shapes``).
 
 Many right-hand sides. ``ldl_solve_many`` solves R right-hand sides
 against one factor (the stage sweep's ``C⁻¹ Eᵀ``). The kernel takes one
@@ -213,10 +214,12 @@ def ldl_factor(K: torch.Tensor) -> torch.Tensor:
         _check_size(M, K.device)
         _launch("ldl_factor", K.device, Kf.data_ptr(), out.data_ptr(), B, M)
         ldl_factor.launches += 1
+        ldl_factor.shapes.add((B, M))
     return out if K.dtype == torch.float32 else out.to(K.dtype)
 
 
 ldl_factor.launches = 0
+ldl_factor.shapes = set()
 
 
 def ldl_solve(LD: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -242,10 +245,12 @@ def ldl_solve(LD: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _launch("ldl_solve", b.device, LDf.data_ptr(), bf.data_ptr(),
                 out.data_ptr(), B, M)
         ldl_solve.launches += 1
+        ldl_solve.shapes.add((B, M))
     return out if b.dtype == torch.float32 else out.to(b.dtype)
 
 
 ldl_solve.launches = 0
+ldl_solve.shapes = set()
 
 
 def raw_launcher(name: str, *tensors: torch.Tensor):
@@ -298,6 +303,8 @@ ldl_solve_many.copied_bytes = 0
 def reset_launch_counts() -> None:
     ldl_factor.launches = 0
     ldl_solve.launches = 0
+    ldl_factor.shapes = set()
+    ldl_solve.shapes = set()
     ldl_solve_many.copied_bytes = 0
 
 

@@ -35,10 +35,22 @@ attached with :func:`attach_stage_partition` (the sweep's stage blocks go
 through the same two kernels on CUDA), "lu" pivoted LU. The factor carries
 its path's tag, so a resolve can never take another path than its factor.
 
+Derivative pipelines. ``jacobian`` resolves statically
+(:func:`_resolve_jacobian`, the JAX package's chain): "dense" evaluates
+the stacked Jacobian by ``jacrev`` and the Lagrangian Hessian by
+``hessian``; "sparse" takes the stage-sparse pipeline of
+``ops/stagejac.py`` — compressed pullbacks and Hessian seeds, banded row
+windows carried instead of dense Jacobians, and the KKT system assembled
+straight into stage blocks for ``factor_kkt_stage_banded``. "sparse" needs
+a ``stage_jacobian_plan``, which only a proved stage-structure certificate
+builds (:func:`attach_jacobian_plan`, ``stagejac.attach_plan_if_
+worthwhile``); "auto" takes it where a plan is attached, the KKT path
+resolves to the stage sweep and the size clears ``jacobian_min_size``.
+
 Options this port does not serve yet raise ``NotImplementedError``:
-``jacobian="sparse"``, ``precision="mixed"`` / ``"require"`` and
-``fusion="require"``. "auto" values resolve as the JAX package does off a
-TPU: ``precision`` → "full", ``fused_ls_jacobian`` → "off".
+``precision="mixed"`` / ``"require"`` and ``fusion="require"``. "auto"
+values resolve as the JAX package does off a TPU: ``precision`` → "full",
+``fused_ls_jacobian`` → "off".
 """
 
 from __future__ import annotations
@@ -47,11 +59,12 @@ import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.func import hessian, jacrev, vmap
+from torch.func import grad, hessian, jacrev, vmap
 from torch.profiler import record_function
 from torch.utils._pytree import tree_map
 
 from agentlib_mpc_torch.ops import kkt as kkt_ops
+from agentlib_mpc_torch.ops import stagejac as sjac
 from agentlib_mpc_torch.ops import stagewise as stage_ops
 from agentlib_mpc_torch.utils.device import resolve_device
 
@@ -107,9 +120,14 @@ class SolverOptions(NamedTuple):
     #: "auto" crossover: smallest KKT dimension routed to the stage sweep
     #: (the JAX package's, measured against dense LU)
     stage_min_size: int = 192
-    #: derivative pipeline: "auto"/"dense" → dense; "sparse" not ported
+    #: derivative pipeline: "dense" (jacrev/hessian), "sparse" (the
+    #: stage-sparse pipeline; needs ``stage_jacobian_plan``) or "auto"
+    #: (sparse where a plan is attached, the KKT path resolves to the stage
+    #: sweep and the size is at least ``jacobian_min_size``)
     jacobian: str = "auto"
     jacobian_min_size: int = 384
+    #: certificate-backed ``stagejac.StageJacobianPlan``, attached by
+    #: :func:`attach_jacobian_plan`
     stage_jacobian_plan: Any = None
     #: "auto"/"off" run the same eager program; "require" needs the
     #: certifiers (not ported)
@@ -167,9 +185,9 @@ class _IPState(NamedTuple):
     fv: torch.Tensor      # (B,) objective value
     gf: torch.Tensor      # (B, n) objective gradient
     gv: torch.Tensor      # (B, m_e) equality residuals
-    Jg: torch.Tensor      # (B, m_e, n)
+    Jg: torch.Tensor      # (B, m_e, n); banded rows (B, m_e, W_g) if sparse
     hv: torch.Tensor      # (B, m_h) inequality residuals
-    Jh: torch.Tensor      # (B, m_h, n)
+    Jh: torch.Tensor      # (B, m_h, n); banded rows (B, m_h, W_h) if sparse
 
 
 # ---- option resolution ------------------------------------------------------
@@ -182,6 +200,17 @@ def attach_stage_partition(options: SolverOptions,
     if (partition is not None and options.stage_partition is None
             and options.kkt_method in ("auto", "stage")):
         return options._replace(stage_partition=partition)
+    return options
+
+
+def attach_jacobian_plan(options: SolverOptions, plan) -> SolverOptions:
+    """Attach a certificate-backed stage-sparse derivative plan when the
+    options could use it (``jacobian`` "auto"/"sparse" and none attached
+    yet) — the sibling of :func:`attach_stage_partition` for the
+    derivative side of the stage pipeline."""
+    if (plan is not None and options.stage_jacobian_plan is None
+            and options.jacobian in ("auto", "sparse")):
+        return options._replace(stage_jacobian_plan=plan)
     return options
 
 
@@ -229,16 +258,69 @@ def _resolve_precision(opts: SolverOptions) -> str:
     return "full"
 
 
-def _resolve_jacobian(opts: SolverOptions) -> str:
+def _resolve_jacobian(opts: SolverOptions, size: int, device) -> str:
+    """Static routing of the derivative pipeline ("dense"/"sparse").
+
+    A ``stage_jacobian_plan`` exists only where the stage-structure
+    certificate proved the band, so "auto" routes sparse exactly where (a)
+    the proof exists, (b) the stage sweep is the resolved KKT path (the
+    banded assembly feeds it) and (c) the size clears
+    ``jacobian_min_size``. Forcing "sparse" skips the crossovers but still
+    demands the proof."""
     jac = opts.jacobian
     if jac not in ("auto", "dense", "sparse"):
         raise ValueError(
             f"jacobian must be 'auto', 'dense' or 'sparse', got {jac!r}")
+    plan = opts.stage_jacobian_plan
+    if (plan is not None and opts.stage_partition is not None
+            and plan.partition != opts.stage_partition):
+        raise ValueError(
+            "stage_jacobian_plan and stage_partition describe different "
+            "partitions — attach both from the same TranscribedOCP")
+    if jac == "dense":
+        return "dense"
     if jac == "sparse":
-        raise NotImplementedError(
-            "jacobian='sparse' needs ops/stagejac.py, which the port has not "
-            "ported yet (ROADMAP Queue 1: stagejac with the certifier)")
-    return "dense"
+        if plan is None:
+            raise ValueError(
+                "jacobian='sparse' requires a stage_jacobian_plan — it is "
+                "attached from a PROVED stage-structure certificate "
+                "(stagejac.plan_from_certificate); refuted/unknown "
+                "structure must stay on the dense pipeline")
+        if plan.partition.n_total != size:
+            raise ValueError(
+                f"stage_jacobian_plan covers a {plan.partition.n_total}-"
+                f"dim KKT system; this problem is {size}")
+        if opts.kkt_method not in ("auto", "stage"):
+            raise ValueError(
+                f"jacobian='sparse' assembles the banded stage KKT; "
+                f"kkt_method={opts.kkt_method!r} contradicts it")
+        if opts.fused_ls_jacobian == "on":
+            raise ValueError(
+                "fused_ls_jacobian='on' is incompatible with "
+                "jacobian='sparse' (the fused line search carries dense "
+                "trial Jacobians)")
+        return "sparse"
+    if (plan is None or plan.partition.n_total != size
+            or opts.fused_ls_jacobian == "on"):
+        return "dense"
+    resolved = kkt_ops.resolve_kkt_method(opts.kkt_method, size, device,
+                                          plan.partition,
+                                          opts.stage_min_size)
+    if resolved != "stage" or size < opts.jacobian_min_size:
+        return "dense"
+    return "sparse"
+
+
+def _resolve_paths(opts: SolverOptions, size: int, device):
+    """(jac_path, kkt_path, plan): the sparse pipeline assembles the
+    banded stage system directly, so it IS the stage factor path (a forced
+    "sparse" skips the size floor)."""
+    jac_path = _resolve_jacobian(opts, size, device)
+    if jac_path == "sparse":
+        return jac_path, "stage", opts.stage_jacobian_plan
+    return jac_path, kkt_ops.resolve_kkt_method(
+        opts.kkt_method, size, device, opts.stage_partition,
+        opts.stage_min_size), None
 
 
 # ---- KKT factor / resolve -----------------------------------------------------
@@ -277,6 +359,13 @@ def _resolve_kkt(factor, rhs):
     if kind == "stage":
         stage_factor, partition = f
         return stage_ops.resolve_kkt_stage(stage_factor, rhs, partition)
+    if kind == "stage_banded":
+        # the stage-sparse assembly: the factor was built from (D, E)
+        # blocks; refinement runs on the banded product (exact: the
+        # certificate proved out-of-band entries structurally zero)
+        banded_factor, partition = f
+        return stage_ops.resolve_kkt_stage_banded(banded_factor, rhs,
+                                                  partition)
     if kind == "ldl":
         return kkt_ops.resolve_kkt_ldl(f, rhs)
     return _resolve_kkt_lu(f, rhs)
@@ -337,10 +426,28 @@ def _theta_dims(theta):
                     theta)
 
 
-def _row_scaling(nlp, w0, theta, th_dims, d_w, gmax, m_e, m_h):
+def _row_scaling(nlp, w0, theta, th_dims, d_w, gmax, m_e, m_h, plan=None):
     """Gradient-based row scaling of (f, g, h) at ``w0`` (IPOPT
-    ``nlp_scaling``), per lane: ``(s_f (B,), s_g (B, m_e), s_h (B, m_h))``."""
+    ``nlp_scaling``), per lane: ``(s_f (B,), s_g (B, m_e), s_h (B, m_h))``.
+    Shared by the NLP and QP solvers: row maxes from ONE banded eval on the
+    sparse pipeline, from per-row ``jacrev`` on the dense one."""
     in_dims = (0, th_dims)
+    if plan is not None:
+        ix = plan.tensors(w0.device)
+
+        def raw_fgh(w, th):
+            return torch.cat([nlp.f(w, th).reshape(1), nlp.g(w, th),
+                              nlp.h(w, th)])
+
+        _, gf0, Jg0, Jh0 = sjac.banded_fgh_jac(plan, raw_fgh, w0, theta,
+                                                in_dims=(th_dims,))
+        s_f = torch.clamp_max(
+            gmax / torch.clamp_min(_safe_max((gf0 * d_w).abs()), 1e-8), 1.0)
+        s_g = torch.clamp_max(gmax / torch.clamp_min(
+            sjac.band_row_absmax(Jg0, ix["g_cols"], d_w), 1e-8), 1.0)
+        s_h = torch.clamp_max(gmax / torch.clamp_min(
+            sjac.band_row_absmax(Jh0, ix["h_cols"], d_w), 1e-8), 1.0)
+        return s_f, s_g, s_h
     gf0 = vmap(jacrev(nlp.f), in_dims=in_dims)(w0, theta) * d_w
     s_f = torch.clamp_max(gmax / torch.clamp_min(_safe_max(gf0.abs()), 1e-8),
                           1.0)
@@ -409,12 +516,10 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
     m_h = int(nlp.h(w0[0], lane0).shape[0])
 
     kkt_size = n + m_e if m_e else n
-    jac_path = _resolve_jacobian(opts)
-    kkt_path = kkt_ops.resolve_kkt_method(opts.kkt_method, kkt_size, device,
-                                          opts.stage_partition,
-                                          opts.stage_min_size)
+    jac_path, kkt_path, plan = _resolve_paths(opts, kkt_size, device)
     precision_path = _resolve_precision(opts)
-    fused_ls = opts.fused_ls_jacobian == "on"
+    # the fused line search carries per-candidate DENSE Jacobians
+    fused_ls = jac_path == "dense" and opts.fused_ls_jacobian == "on"
 
     # ---- automatic scaling ---------------------------------------------------
     if opts.scale_variables:
@@ -422,7 +527,7 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
     else:
         d_w = torch.ones_like(w0)
     s_f, s_g, s_h = _row_scaling(nlp, w0, theta, th_dims, d_w,
-                                 opts.scaling_grad_max, m_e, m_h)
+                                 opts.scaling_grad_max, m_e, m_h, plan)
     lb = w_lb / d_w
     ub = w_ub / d_w
     # per-lane scaling data passed alongside theta through vmap
@@ -450,7 +555,32 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
             val = val - z_h @ (s_h_ * nlp.h(ww, th))
         return val
 
-    fgh_and_jac = vmap(fgh_jac_lane, in_dims=(0, *sc_dims))
+    if plan is not None:
+        # carried Jacobians are banded row windows (B, m_e, 3 v_s) /
+        # (B, m_h, 2 v_s) instead of the dense (B, m, n)
+        ix = plan.tensors(device)
+
+        def fgh_and_jac(w, *sc_):
+            vals, gf, Jg_rows, Jh_rows = sjac.banded_fgh_jac(
+                plan, fgh_lane, w, *sc_, in_dims=sc_dims)
+            return vals, (gf, Jg_rows, Jh_rows)
+
+        def split(vals, jac):
+            gf, Jg, Jh = jac
+            return (vals[:, 0], gf, vals[:, 1:1 + m_e], Jg,
+                    vals[:, 1 + m_e:], Jh)
+
+        jg_t_mv = lambda Jg, v: sjac.band_rmatvec(Jg, ix["g_cols"], v, n)
+        jh_t_mv = lambda Jh, v: sjac.band_rmatvec(Jh, ix["h_cols"], v, n)
+        jh_mv = lambda Jh, x: sjac.band_matvec(Jh, ix["h_cols"], x)
+    else:
+        fgh_and_jac = vmap(fgh_jac_lane, in_dims=(0, *sc_dims))
+
+        def split(vals, jac):
+            return (vals[:, 0], jac[:, 0], vals[:, 1:1 + m_e],
+                    jac[:, 1:1 + m_e], vals[:, 1 + m_e:], jac[:, 1 + m_e:])
+
+        jg_t_mv, jh_t_mv, jh_mv = _rmv, _rmv, _mv
     fgh_trials = vmap(vmap(fgh_lane, in_dims=(0, None, None, None, None,
                                                None)),
                       in_dims=(0, *sc_dims))
@@ -459,10 +589,7 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
                           in_dims=(0, *sc_dims))
     hess_l = vmap(hessian(lagrangian_lane, argnums=0),
                   in_dims=(0, 0, 0, *sc_dims))
-
-    def split(vals, jac):
-        return (vals[:, 0], jac[:, 0], vals[:, 1:1 + m_e],
-                jac[:, 1:1 + m_e], vals[:, 1 + m_e:], jac[:, 1 + m_e:])
+    grad_l = grad(lagrangian_lane, argnums=0)
 
     # dtype-aware barrier floor and feasibility target (see the JAX
     # package: the f32 noise floor of the scaled constraints)
@@ -499,9 +626,9 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
         mu_c = mu[:, None] if isinstance(mu, torch.Tensor) else mu
         r_w = gf - zL + zU
         if m_e:
-            r_w = r_w + _rmv(Jg, y)
+            r_w = r_w + jg_t_mv(Jg, y)
         if m_h:
-            r_w = r_w - _rmv(Jh, z)
+            r_w = r_w - jh_t_mv(Jh, z)
         r_h = hv - s
         comp = torch.cat([s * z - mu_c, (w - lb) * zL - mu_c,
                           (ub - w) * zU - mu_c], dim=-1)
@@ -530,28 +657,44 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
         sigma_U = zU / dU
         r_w = gf - zL + zU
         if m_e:
-            r_w = r_w + _rmv(Jg, y)
+            r_w = r_w + jg_t_mv(Jg, y)
         if m_h:
-            r_w = r_w - _rmv(Jh, z)
+            r_w = r_w - jh_t_mv(Jh, z)
 
         # ---- assemble + factor the reduced KKT system ---------------------
-        with record_function("ipm.eval_jac"):
-            H = hess_l(w, y, z, *sc)
-        with record_function("ipm.assemble"):
-            W = H + torch.diag_embed(delta[:, None] + sigma_L + sigma_U)
-            if m_h:
-                W = W + torch.matmul(Jh.transpose(-1, -2),
-                                     sigma_s[..., None] * Jh)
-            if m_e:
-                reg = -opts.delta_c * torch.eye(m_e, dtype=dtype,
-                                                device=device)
-                K = torch.cat([torch.cat([W, Jg.transpose(-1, -2)], dim=-1),
-                               torch.cat([Jg, reg.expand(B, m_e, m_e)],
-                                         dim=-1)], dim=-2)
-            else:
-                K = W
-        with record_function("ipm.factor"):
-            factor = _factor_kkt(K, kkt_path, opts.stage_partition)
+        if plan is not None:
+            # compressed Hessian columns (3·v_s forward passes instead of
+            # n) assembled straight into the banded stage layout
+            with record_function("ipm.eval_jac"):
+                CH = sjac.banded_lagrangian_hessian(
+                    plan, grad_l, w, y, z, *sc, in_dims=(0, 0, *sc_dims))
+            with record_function("ipm.assemble"):
+                D, E = sjac.assemble_kkt_banded(
+                    plan, CH, Jg, Jh, sigma_s if m_h else w.new_zeros((B, 0)),
+                    delta[:, None] + sigma_L + sigma_U, opts.delta_c)
+            with record_function("ipm.factor"):
+                factor = ("stage_banded",
+                          (stage_ops.factor_kkt_stage_banded(D, E),
+                           plan.partition))
+        else:
+            with record_function("ipm.eval_jac"):
+                H = hess_l(w, y, z, *sc)
+            with record_function("ipm.assemble"):
+                W = H + torch.diag_embed(delta[:, None] + sigma_L + sigma_U)
+                if m_h:
+                    W = W + torch.matmul(Jh.transpose(-1, -2),
+                                         sigma_s[..., None] * Jh)
+                if m_e:
+                    reg = -opts.delta_c * torch.eye(m_e, dtype=dtype,
+                                                    device=device)
+                    K = torch.cat([torch.cat([W, Jg.transpose(-1, -2)],
+                                             dim=-1),
+                                   torch.cat([Jg, reg.expand(B, m_e, m_e)],
+                                             dim=-1)], dim=-2)
+                else:
+                    K = W
+            with record_function("ipm.factor"):
+                factor = _factor_kkt(K, kkt_path, opts.stage_partition)
 
         def newton_dir(rhs_w_k, mu_s, mu_L, mu_U):
             """Direction from the stored factor for (possibly per-entry)
@@ -562,7 +705,7 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
             else:
                 dw_k = _resolve_kkt(factor, rhs_w_k)
                 dy_k = empty
-            ds_k = (_mv(Jh, dw_k) + r_h) if m_h else s
+            ds_k = (jh_mv(Jh, dw_k) + r_h) if m_h else s
             dz_k = (mu_s / torch.clamp_min(s, 1e-12) - z
                     - sigma_s * ds_k) if m_h else z
             dzL_k = mu_L / dL - zL - sigma_L * dw_k
@@ -574,7 +717,7 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
             out = -r_w + (mu_L / dL - zL) - (mu_U / dU - zU)
             if m_h:
                 corr = mu_s / torch.clamp_min(s, 1e-12) - z - sigma_s * r_h
-                out = out + _rmv(Jh, corr)
+                out = out + jh_t_mv(Jh, corr)
             return out
 
         with record_function("ipm.resolve"):

@@ -8,7 +8,11 @@ imports JAX:
     ocp_params_from_numpy({k: np.asarray(v) for k, v in
                            jax_theta._asdict().items()}, device, dtype)
 
-A stage partition crosses as its fields (``stage_partition_from_fields``).
+A stage partition crosses as its fields (``stage_partition_from_fields``);
+a stage-sparse derivative plan as its defining key, the partition and the
+per-row stages of ``h`` (``stage_jacobian_plan_from_fields``), and its
+derived index arrays come back out as numpy (``plan_arrays``) to be held
+against another framework's entry for entry.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from agentlib_mpc_torch.ops.stagejac import (
+    StageJacobianPlan,
+    build_stage_jacobian_plan,
+)
 from agentlib_mpc_torch.ops.stagewise import StagePartition
 from agentlib_mpc_torch.ops.transcription import OCPParams
 from agentlib_mpc_torch.utils.device import resolve_device
@@ -59,6 +67,33 @@ def stage_partition_from_fields(partition) -> StagePartition:
         n_stages=int(get("n_stages")), block=int(get("block")),
         n_w=int(get("n_w")), n_total=int(get("n_total")),
         perm=tuple(int(i) for i in get("perm")))
+
+
+#: the derived arrays of a :class:`StageJacobianPlan` (numpy, built from
+#: the plan's key)
+PLAN_ARRAYS = (
+    "ct_matrix", "hess_seeds", "g_cols", "g_cols_safe", "g_src", "g_mask",
+    "h_cols", "h_cols_safe", "h_src", "h_mask", "hrow_cols",
+    "hrow_cols_safe", "hrow_src", "hrow_mask", "de_init", "hasm_dst",
+    "gasm_dst1", "gasm_dst2", "jh_dst", "var_diag_dst", "eq_diag_dst",
+)
+
+
+def stage_jacobian_plan_from_fields(plan) -> StageJacobianPlan:
+    """The port's (memoized) plan from any object or mapping with the
+    fields ``partition`` (itself carried by
+    :func:`stage_partition_from_fields`) and ``h_row_stages``."""
+    get = (plan.__getitem__ if isinstance(plan, Mapping)
+           else lambda k: getattr(plan, k))
+    return build_stage_jacobian_plan(
+        stage_partition_from_fields(get("partition")),
+        tuple(int(s) for s in get("h_row_stages")))
+
+
+def plan_arrays(plan) -> dict:
+    """The derived index and seed arrays of a plan (either framework's:
+    both build them in numpy) as a name → numpy array mapping."""
+    return {k: np.asarray(getattr(plan, k)) for k in PLAN_ARRAYS}
 
 
 def to_numpy(tree):

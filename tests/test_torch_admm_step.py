@@ -8,7 +8,12 @@ tolerance covers f64 round-off carried through 2 x 10 ADMM iterations).
 The same at a short horizon (N=3, dt=900 s) with two zones on the stage
 sweep (``kkt_method="stage"``, each package's own partition passed in the
 solver overrides; ``bench.HORIZON``/``bench.DT`` monkeypatched, which
-``bench.build_step`` reads at call time). Also: the ADMM operators against
+``bench.build_step`` reads at call time), and there on the stage-sparse
+derivative pipeline (``jacobian="sparse"``: the port certifies and
+attaches its plan, the JAX side gets its own plan built from the same
+partition and rows). The linear fleet through the QP fast path
+(``model="linear", inner="qp"``) against ``bench.build_step(model=
+"linear", inner="qp")``, four zones, the same gates. Also: the ADMM operators against
 ``agentlib_mpc_tpu/ops/admm.py``, the copied workload constants against
 ``bench.py``, and the numpy carriers of ``utils/convert.py``.
 """
@@ -41,6 +46,12 @@ def test_workload_constants_equal_bench():
     _, d_row, zbar0, rho0 = bench._MODELS["zone"]
     assert tuple(d_row(0.0)[1:]) == admm_step.ZONE_D_ROW_TAIL
     assert (zbar0, rho0) == (admm_step.ZONE_ZBAR0, admm_step.ZONE_RHO0)
+    _, d_row, zbar0, rho0 = bench._MODELS["linear"]
+    assert tuple(d_row(0.0)[1:]) == admm_step.LINEAR_D_ROW_TAIL
+    assert (zbar0, rho0) == (admm_step.LINEAR_ZBAR0, admm_step.LINEAR_RHO0)
+    for model, (_, tail, z0, r0) in admm_step.MODELS.items():
+        _, d_row, zbar0, rho0 = bench._MODELS[model]
+        assert (tuple(d_row(0.0)[1:]), zbar0, rho0) == (tail, z0, r0)
     for a, b in zip(admm_step.fleet_inputs(7), bench.fleet_inputs(7)):
         np.testing.assert_array_equal(a, b)
 
@@ -197,3 +208,106 @@ def test_default_horizon_keeps_the_dense_paths():
     _, stats = step(*args)
     assert bool((stats[5] == KKT_PATHS.index("lu")).all())
     assert admm_step.zone_ocp().stage_partition.n_total == 92
+
+
+@pytest.fixture(scope="module")
+def sparse_steps():
+    """One cold + one warm control step at N=3 on the stage-sparse
+    derivative pipeline through each package."""
+    from agentlib_mpc_tpu.ops.stagejac import build_stage_jacobian_plan
+
+    tpart = admm_step.zone_ocp(STAGE_N, STAGE_DT).stage_partition
+    step, args = admm_step.build_step(
+        STAGE_ZONES, {"jacobian": "sparse"}, device="cpu", dtype=F64,
+        record_stats=True, horizon=STAGE_N, dt=STAGE_DT)
+    plan = step.solver_options.stage_jacobian_plan
+    assert plan is not None and plan.partition == tpart
+    mp = pytest.MonkeyPatch()
+    mp.setattr(bench, "HORIZON", STAGE_N)
+    mp.setattr(bench, "DT", STAGE_DT)
+    try:
+        jpart = bench.zone_ocp().stage_partition
+        jplan = build_stage_jacobian_plan(jpart, plan.h_row_stages)
+        jstep, jargs = bench.build_step(
+            STAGE_ZONES, {"jacobian": "sparse", "stage_partition": jpart,
+                          "stage_jacobian_plan": jplan},
+            record_stats=True)
+        jout, jstats = jstep(*jargs)
+        jout2, jstats2 = bench.warm_step(jstep, jargs, jout)
+    finally:
+        mp.undo()
+    out, stats = step(*args)
+    out2, stats2 = admm_step.warm_step(step, args, out)
+    return ((jout, jstats), (jout2, jstats2)), ((out, stats), (out2, stats2))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["cold", "warm"])
+def test_sparse_control_step_matches_bench(sparse_steps, which):
+    from agentlib_mpc_torch.ops.solver import JAC_PATHS, KKT_PATHS
+
+    (jout, jstats), (out, stats) = sparse_steps[0][which], \
+        sparse_steps[1][which]
+    assert bool((stats[5] == KKT_PATHS.index("stage")).all())
+    assert bool((stats[6] == JAC_PATHS.index("sparse")).all())
+    np.testing.assert_array_equal(stats[2].numpy(), np.asarray(jstats[2]))
+    np.testing.assert_array_equal(stats[3].numpy(), np.asarray(jstats[3]))
+    for name, a, b in zip(("w", "y", "z", "zbar", "lams"), jout, out):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=RTOL,
+                                   atol=RTOL * np.abs(a).max(), err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def linear_qp_steps():
+    """One cold + one warm step of the linear fleet through the QP fast
+    path in each package."""
+    jstep, jargs = bench.build_step(N_ZONES, {"kkt_method": "ldl"},
+                                    model="linear", inner="qp",
+                                    record_stats=True)
+    jout, jstats = jstep(*jargs)
+    jout2, jstats2 = bench.warm_step(jstep, jargs, jout)
+    step, args = admm_step.build_step(N_ZONES, {"kkt_method": "ldl"},
+                                      device="cpu", dtype=F64,
+                                      record_stats=True, model="linear",
+                                      inner="qp")
+    for a, b in zip(args, jargs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    out, stats = step(*args)
+    out2, stats2 = admm_step.warm_step(step, args, out)
+    return ((jout, jstats), (jout2, jstats2)), ((out, stats), (out2, stats2))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["cold", "warm"])
+def test_linear_qp_step_matches_bench(linear_qp_steps, which):
+    from agentlib_mpc_torch.ops.solver import JAC_PATHS, KKT_PATHS
+
+    (jout, jstats), (out, stats) = linear_qp_steps[0][which], \
+        linear_qp_steps[1][which]
+    assert bool((stats[5] == KKT_PATHS.index("ldl")).all())
+    assert bool((stats[6] == JAC_PATHS.index("dense")).all())
+    np.testing.assert_array_equal(stats[2].numpy(), np.asarray(jstats[2]))
+    np.testing.assert_array_equal(stats[3].numpy(), np.asarray(jstats[3]))
+    for name, a, b in zip(("w", "y", "z", "zbar", "lams"), jout, out):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=RTOL,
+                                   atol=RTOL * np.abs(a).max(), err_msg=name)
+    for k in (0, 1):
+        np.testing.assert_allclose(stats[k].numpy(), np.asarray(jstats[k]),
+                                   rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("model", ["zone", "linear"])
+def test_plan_attached_a_day_ahead_only(model):
+    """The production seam: the certified plan is attached where "auto"
+    can route sparse (N=96, KKT 866 on the sweep) and not at N=10 (KKT 92
+    below jacobian_min_size)."""
+    step96, _ = admm_step.build_step(2, device="cpu", dtype=F64, model=model,
+                                     horizon=96, dt=900.0)
+    plan = step96.solver_options.stage_jacobian_plan
+    assert plan is not None and plan.partition.n_total == 866
+    step10, _ = admm_step.build_step(2, device="cpu", dtype=F64, model=model)
+    assert step10.solver_options.stage_jacobian_plan is None
+    with pytest.raises(ValueError, match="model"):
+        admm_step.build_step(2, device="cpu", model="tank")
+    with pytest.raises(ValueError, match="inner"):
+        admm_step.build_step(2, device="cpu", inner="simplex")
