@@ -10,8 +10,10 @@ the zone and the linear fleet: the model zoo, collocation and multiple
 shooting with the integrators, the batch-first interior-point solver with
 its dense, stage-sweep and stage-sparse paths, the Mehrotra QP fast path,
 the certifiers that route both fast paths (``lint/fx``), the consensus
-update and the two hand-written Hopper kernels of ``ops/kkt.py`` (the
-pivot-free LDLᵀ factor and solve, ``csrc/``).
+and exchange updates, the fleet engine ``FusedADMM`` with its config entry
+point ``FusedFleet`` (``parallel/``), and the two hand-written Hopper
+kernels of ``ops/kkt.py`` (the pivot-free LDLᵀ factor and solve,
+``csrc/``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``utils.device.resolve_device``).

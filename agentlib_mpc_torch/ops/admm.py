@@ -1,11 +1,14 @@
-"""ADMM consensus math as plain tensor functions.
+"""ADMM consensus and exchange math as plain tensor functions.
 
-Port of ``agentlib_mpc_tpu/ops/admm.py:67-215, 298-305``: the masked
-consensus mean, the consensus update with Boyd-style residuals, the
-relative-tolerance convergence check and the augmented-Lagrangian penalty
-each local problem adds. Coupling trajectories are stacked with the agent
-axis first. The mesh form (``axis_name``, a ``psum`` over a sharded agent
-axis) waits for the multi-GPU slice.
+Port of ``agentlib_mpc_tpu/ops/admm.py`` without its telemetry recorders
+(``record_residuals``/``trim_residuals`` write the telemetry registry and
+wait for it): the masked mean, the consensus and exchange updates with
+Boyd-style residuals, their combination over several couplings, the
+relative-tolerance convergence check, the residual-balancing penalty, the
+shift-by-one warm start and the augmented-Lagrangian penalties each local
+problem adds. Coupling trajectories are stacked with the agent axis first.
+The mesh form (``axis_name``, a ``psum`` over a sharded agent axis) waits
+for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -36,6 +39,15 @@ class ConsensusState(NamedTuple):
     zbar: torch.Tensor     # (T,) or (K, T) global mean trajectory
     lam: torch.Tensor      # (n_agents, T) / (n_agents, K, T) multipliers
     rho: torch.Tensor      # () penalty parameter
+
+
+class ExchangeState(NamedTuple):
+    """Global exchange-ADMM state (shared multiplier, per-agent diffs)."""
+
+    mean: torch.Tensor     # (T,) mean trajectory
+    diff: torch.Tensor     # (n_agents, T) x_i - mean (per-agent targets)
+    lam: torch.Tensor      # (T,) shared multiplier
+    rho: torch.Tensor      # ()
 
 
 class AdmmResiduals(NamedTuple):
@@ -76,6 +88,48 @@ def consensus_update(locals_, state: ConsensusState, active=None
     return ConsensusState(zbar=zbar_new, lam=lam_new, rho=state.rho), res
 
 
+def exchange_update(locals_, state: ExchangeState, active=None
+                    ) -> tuple[ExchangeState, AdmmResiduals]:
+    """One exchange-ADMM global step.
+
+    mean⁺ = mean_i x_i;  diff_i⁺ = x_i − mean⁺;  λ⁺ = λ + ρ mean⁺
+    primal residual = ‖mean⁺‖ (resource balance);  dual = ‖ρ Δmean‖
+    """
+    mean_new = _masked_mean(locals_, active)
+    m = _active_mask(locals_, active)
+    w = m.reshape((-1,) + (1,) * (locals_.ndim - 1))
+    # masked-out agents keep their diff
+    diff_new = torch.where(w > 0, locals_ - mean_new[None, ...], state.diff)
+    lam_new = state.lam + state.rho * mean_new
+    res = AdmmResiduals(
+        primal=torch.linalg.vector_norm(mean_new),
+        dual=torch.linalg.vector_norm(state.rho * (mean_new - state.mean)),
+        scale_primal=torch.maximum(torch.linalg.vector_norm(locals_ * w),
+                                   torch.linalg.vector_norm(mean_new)),
+        scale_dual=torch.linalg.vector_norm(lam_new),
+        n_primal=locals_.new_tensor(float(mean_new.numel())),
+        n_dual=m.sum() * mean_new.numel(),
+    )
+    return ExchangeState(mean=mean_new, diff=diff_new, lam=lam_new,
+                         rho=state.rho), res
+
+
+def combine_residuals(*results: AdmmResiduals) -> AdmmResiduals:
+    """Aggregate the residuals of several coupling quantities into one
+    check: root sum of squares of the norms, sums of the sizes."""
+    def rss(vals):
+        return torch.sqrt(sum(v ** 2 for v in vals))
+
+    return AdmmResiduals(
+        primal=rss([r.primal for r in results]),
+        dual=rss([r.dual for r in results]),
+        scale_primal=rss([r.scale_primal for r in results]),
+        scale_dual=rss([r.scale_dual for r in results]),
+        n_primal=sum(r.n_primal for r in results),
+        n_dual=sum(r.n_dual for r in results),
+    )
+
+
 def converged(res: AdmmResiduals, abs_tol: float = 1e-3,
               rel_tol: float = 1e-2, use_relative: bool = True,
               primal_tol: float = 1e-3, dual_tol: float = 1e-3):
@@ -91,7 +145,33 @@ def converged(res: AdmmResiduals, abs_tol: float = 1e-3,
     return (res.primal < primal_tol) & (res.dual < dual_tol)
 
 
+def vary_penalty(rho, res: AdmmResiduals, threshold: float = 10.0,
+                 factor: float = 2.0):
+    """Residual-balancing adaptive penalty: grow ρ when primal ≫ dual,
+    shrink it when dual ≫ primal; ``threshold <= 1`` disables adaptation."""
+    if threshold <= 1:
+        return rho
+    grow = res.primal > threshold * res.dual
+    shrink = res.dual > threshold * res.primal
+    return torch.where(grow, rho * factor,
+                       torch.where(shrink, rho / factor, rho))
+
+
+def shift_one(traj, horizon: int):
+    """Shift a trajectory one control interval forward, repeating the tail
+    (the warm start between control steps). The LAST axis is the time grid
+    of length ``k·horizon``."""
+    shift_by = traj.shape[-1] // horizon
+    return torch.cat([traj[..., shift_by:], traj[..., -shift_by:]], dim=-1)
+
+
 def consensus_penalty(x_local, zbar, lam, rho):
     """Augmented-Lagrangian terms one agent adds to its OCP objective for a
     consensus coupling: ``λᵀ x + ρ/2 ‖z̄ − x‖²`` over the whole trajectory."""
     return (lam * x_local).sum() + 0.5 * rho * ((zbar - x_local) ** 2).sum()
+
+
+def exchange_penalty(x_local, diff, lam, rho):
+    """Exchange coupling terms: ``λᵀ x + ρ/2 ‖diff − x‖²``, where ``diff``
+    is the agent's previous deviation from the mean."""
+    return (lam * x_local).sum() + 0.5 * rho * ((diff - x_local) ** 2).sum()

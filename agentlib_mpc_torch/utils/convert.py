@@ -13,6 +13,17 @@ a stage-sparse derivative plan as its defining key, the partition and the
 per-row stages of ``h`` (``stage_jacobian_plan_from_fields``), and its
 derived index arrays come back out as numpy (``plan_arrays``) to be held
 against another framework's entry for entry.
+
+The fused engine's state and round statistics cross the same way: any
+object with the fields of :class:`~agentlib_mpc_torch.parallel.fused_admm.
+FusedState` (or ``IterationStats``) whose leaves are numpy arrays, in
+dicts and tuples as the engine nests them, comes in through
+:func:`fused_state_from_numpy` / :func:`iteration_stats_from_numpy`, and
+:func:`to_numpy` takes the port's back out (the same field names, so
+``OtherFusedState(**to_numpy(state)._asdict())`` rebuilds the other
+framework's). A fleet's per-group stacked parameters come in through
+:func:`theta_batches_from_numpy`. Floating leaves take the given dtype;
+integer and boolean leaves keep theirs.
 """
 
 from __future__ import annotations
@@ -55,6 +66,51 @@ def fleet_args_from_numpy(arrays: Sequence[np.ndarray], device=None,
     dev = resolve_device(device)
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
                  for a in arrays)
+
+
+def _tensors(tree, device, dtype):
+    """Numpy leaves of nested dicts, tuples and lists as tensors."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tensors(v, device, dtype) for v in tree)
+    arr = np.asarray(tree)
+    t = torch.tensor(arr, device=device)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def _named_from_numpy(cls, obj, device, dtype):
+    get = (obj.__getitem__ if isinstance(obj, Mapping)
+           else lambda k: getattr(obj, k))
+    dev = resolve_device(device)
+    return cls(**{k: _tensors(get(k), dev, dtype) for k in cls._fields})
+
+
+def fused_state_from_numpy(state, device=None,
+                           dtype: torch.dtype = torch.float32):
+    """The port's ``FusedState`` from any object or mapping with its
+    fields holding numpy leaves."""
+    from agentlib_mpc_torch.parallel.fused_admm import FusedState
+
+    return _named_from_numpy(FusedState, state, device, dtype)
+
+
+def iteration_stats_from_numpy(stats, device=None,
+                               dtype: torch.dtype = torch.float32):
+    """The port's ``IterationStats`` from any object or mapping with its
+    fields holding numpy leaves (None where the round recorded none)."""
+    from agentlib_mpc_torch.parallel.fused_admm import IterationStats
+
+    return _named_from_numpy(IterationStats, stats, device, dtype)
+
+
+def theta_batches_from_numpy(batches: Sequence, device=None,
+                             dtype: torch.dtype = torch.float32) -> list:
+    """Per-group stacked OCPParams (agent axis first) from objects or
+    mappings with the OCPParams fields holding numpy arrays."""
+    return [_named_from_numpy(OCPParams, b, device, dtype) for b in batches]
 
 
 def stage_partition_from_fields(partition) -> StagePartition:

@@ -36,10 +36,10 @@ non-zero without printing a result:
               library yardstick at each.
 7. long_horizon — the 256-zone step a day ahead (N=96, dt=900 s, KKT
               866 of 97 stages of 10), "auto" routed to the stage sweep:
-              one cold and three warm steps in f32 with the launch counters
-              reset just before and read just after (launches must equal
-              97 factor and 1 254 solve launches per interior-point
-              iteration), a profiled warm step, then the quality gate: the
+              one cold and one warm step in f32 (LONG_N_WARM) with the
+              launch counters reset just before and read just after
+              (launches must equal 97 factor and 1 254 solve launches per
+              interior-point iteration), a profiled warm step, then the quality gate: the
               same steps in f64 on the card with kkt_method="lu" (and in
               f32 with "lu", the dense path's own f32 round-off).
 8. shooting — 256 zones at N=96 by multiple shooting (rk4, 3 substeps;
@@ -73,6 +73,31 @@ non-zero without printing a result:
               stand beside long_horizon's; held against long_horizon's f64
               LU outputs (reused) with its gate, and within 1e-3 of its
               dense f32 run on z̄.
+12. fused_slice — ``bench.py``'s ``--mesh-ab`` workload at one device
+              through the port's ``FusedADMM``: 256 ``ZoneWithSupply``
+              zones, N=10, inner budgets 10 / 1, 10 ADMM iterations with
+              the Boyd exit: a cold and three warm rounds with the launch
+              counters reset just before and read just after (exactly 6
+              solve launches per factor launch, at most the inner budgets'
+              factor launches, every factor at (256, 92)), a profiled warm
+              round, the quality gate against the same engine in f64 on
+              the CPU with the exits pinned to zero (both run exactly 10
+              iterations), and a quarantined NaN lane.
+13. fused_linear — the linear fleet the same way, routed to the QP by
+              its certificate. Its f32 rounds run off f64 in the JAX
+              package too (FUSED_LINEAR_F64_TOL_W); they are reported on
+              LDLᵀ and pivoted LU, and the gate holds the card's engine in
+              f64 against the CPU's.
+14. fused_fleet — ``FusedFleet.from_configs`` over 256 room configs of
+              ``examples/fused_fleet_rooms.py`` (N=6, degree-2 Legendre
+              collocation, KKT 56): three control intervals in closed
+              loop (round, a plant step of every room by
+              ``Model.simulate_step``, ``update_agent``, ``advance``), a
+              checkpoint after the first, restored into a fresh fleet whose
+              next round must equal the uninterrupted one bitwise.
+15. path_shapes — every (B, M) a path launched is held bitwise against
+              the plain versions; a shape no earlier phase timed gets its
+              device time, bound, plain and library times.
 
 Then the run's wall time, the ``nvidia-smi`` line, the ``kernels`` JSON
 line and, last, ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
@@ -123,8 +148,12 @@ N_WARM = 3
 #: of 5) and of the block substitutions
 STAGE_FACTOR_SHAPES = ((256, 10), (256, 5))
 STAGE_SOLVE_SHAPES = ((2560, 10), (256, 10), (1280, 5), (256, 5))
-#: the day-ahead horizon: 96 intervals of 15 min
+#: the day-ahead horizon: 96 intervals of 15 min; its paths (long_horizon
+#: with its references, sparse_day_ahead, qp_day_ahead) run one warm step
+#: after the cold one (three before the fused paths joined; cut to keep the
+#: script's wall time well inside its limit)
 LONG_N, LONG_DT = 96, 900.0
+LONG_N_WARM = 1
 #: f32 card (stage sweep) vs f64 card ("lu") of the day-ahead steps. z̄:
 #: slice 1's limit. The spread max|u − z̄|, a max over 256 × 96 controls,
 #: is set by the few lanes whose budget-limited solves stall (half the
@@ -183,6 +212,38 @@ QP_NLP_BOTH_SHARE_MIN = 0.8
 QP_NLP_OBJ_REL_MEDIAN_TOL = 1e-3
 QP_NLP_OBJ_REL_MAX_TOL = 5e-2
 QP_NLP_TOL, QP_NLP_MAX_ITER = 1e-6, 100
+#: the fused engine's workloads. fused_slice is bench.py's --mesh-ab at
+#: one device: 256 ZoneWithSupply zones, N=10, the benchmark's inner
+#: budgets (cold 10, warm 1) and 10 ADMM iterations at rho 20, through
+#: FusedADMM. fused_linear: the linear fleet (LINEAR_*) the same way,
+#: routed to the QP by its certificate. Their quality runs pin the Boyd
+#: exits to zero (bench.py's convention for A/B identity), so the card's
+#: engine and the CPU's f64 engine run exactly the same 10 iterations,
+#: for two rounds; gates: the slice's (ZBAR_TOL, SPREAD_TOL) and
+#: FUSED_LINEAR_F64_TOL_W
+FUSED_ADMM_ITERS, FUSED_RHO = 10, 20.0
+FUSED_QUALITY_STEPS = 2
+#: the fused linear fleet in f32 runs off its f64 rounds in the JAX
+#: package as in the port: the engine weights the penalty by dt, so
+#: ρ·dt = 1.5 against build_step's 5e-3, a stiffer QP than f32 keeps on
+#: budget-limited solves. The JAX package on the CPU, pinned exits, f32
+#: against f64 (scripts/fused_linear_f32_jax.py): 16 zones on LDLᵀ z̄
+#: 235 W and median |Δu| 141 W off; 256 zones on pivoted LU z̄ 36 W,
+#: median 15 W, spread 255 W against 1.25 W (ROADMAP Queue 3). So the
+#: card's f32 rounds (LDLᵀ, and pivoted LU beside them) are reported, and
+#: the gate holds the card's engine in f64 (pivoted LU, torch.linalg)
+#: against the CPU's f64 plain LDLᵀ rounds, z̄ and every control. Set
+#: after the first runs: the card's f64 rounds stayed within 6.3e-8 W
+FUSED_LINEAR_F64_TOL_W = 1e-3
+#: fused_fleet: examples/fused_fleet_rooms.py at 256 rooms (room_config
+#: below is its config with the model named by its zoo name), three
+#: control intervals in closed loop, a checkpoint after the first
+FLEET_N, FLEET_INTERVALS = 256, 3
+FLEET_DT, FLEET_HORIZON, FLEET_MAX_ITERATIONS = 300.0, 6, 8
+FLEET_UB, FLEET_T_IN, FLEET_START = 295.15, 290.15, 298.16
+#: restored fleet vs the uninterrupted one, same next step: bitwise where
+#: no op of the step is nondeterministic (named in the phase's line)
+FLEET_RESUME_TOL = 0.0
 
 
 def emit(obj) -> None:
@@ -501,15 +562,15 @@ def phase_kernels(torch, dev):
     ]
 
 
-def run_steps(torch, step, args, sync):
-    """One cold step and N_WARM warm steps; per-step wall ms, outputs,
+def run_steps(torch, step, args, sync, n_warm: int = N_WARM):
+    """One cold step and ``n_warm`` warm steps; per-step wall ms, outputs,
     stats and (on the card) per-step kernel launches."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.parallel.admm_step import warm_step
 
     outs, ms, launches = [], [], []
     out = None
-    for k in range(1 + N_WARM):
+    for k in range(1 + n_warm):
         before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
         t0 = time.perf_counter()
         out = step(*args) if out is None else warm_step(step, args, out[0])
@@ -564,10 +625,12 @@ def phase_slice(torch, dev):
     return outs, totals, ocp
 
 
-def phase_profile(torch, step, args, out, warm_ms, name="profile"):
+def phase_profile(torch, step, args, out, warm_ms, name="profile",
+                  run=None):
     """One warm step under the profiler (not counted as main-path
     launches): device time by operator and the device's busy share of the
-    unprofiled median warm step."""
+    unprofiled median warm step. ``run`` replaces the control step's warm
+    step (the fused engines' rounds)."""
     from torch.profiler import ProfilerActivity, profile
 
     from agentlib_mpc_torch.ops import kkt
@@ -578,7 +641,10 @@ def phase_profile(torch, step, args, out, warm_ms, name="profile"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        warm_step(step, args, out[0])
+        if run is None:
+            warm_step(step, args, out[0])
+        else:
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
@@ -588,7 +654,7 @@ def phase_profile(torch, step, args, out, warm_ms, name="profile"):
     # ranges also appear on the device timeline and are skipped
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith("ipm.")]
+                  and not e.name.startswith(("ipm.", "admm."))]
     by_name: dict = {}
     for e in dev_events:
         count, us = by_name.get(e.name, (0, 0.0))
@@ -596,11 +662,11 @@ def phase_profile(torch, step, args, out, warm_ms, name="profile"):
     device_ms = sum(us for _, us in by_name.values()) / 1e3
     top_dev = sorted(by_name.items(), key=lambda kv: kv[1][1],
                      reverse=True)[:10]
-    # the solver's named ranges (ops/solver.py): inclusive host time, from
-    # the host-side range events themselves
+    # the solver's and the fused engine's named ranges: inclusive host
+    # time, from the host-side range events themselves
     phases: dict = {}
     for e in prof.events():
-        if e.name.startswith("ipm.") and \
+        if e.name.startswith(("ipm.", "admm.")) and \
                 e.device_type == torch.autograd.DeviceType.CPU:
             count, ms = phases.get(e.name, (0, 0.0))
             phases[e.name] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
@@ -647,11 +713,40 @@ def phase_quality(torch, outs32, ocp):
           "spread_tol": SPREAD_TOL, "steps": rows})
 
 
+def kernel_row(torch, name, K, b):
+    """One kernel at one shape (B, M) against its plain version (bitwise)
+    and its times there: device time per launch, raw-launch events, the
+    plain version, the bound and the library yardstick."""
+    from agentlib_mpc_torch.ops import kkt
+
+    B, M = K.shape[0], K.shape[-1]
+    LD = kkt.ldl_factor_plain(K)
+    (f_bound, f_by), (s_bound, s_by) = bounds(B, M)
+    if name == "ldl_factor":
+        err = float((kkt.ldl_factor(K) - LD).abs().max())
+        raw = kkt.raw_launcher("ldl_factor", K, torch.empty_like(K))
+        plain = lambda: kkt.ldl_factor_plain(K)
+        library = lambda: torch.linalg.ldl_factor(K)
+        bound, by = f_bound, f_by
+    else:
+        err = float((kkt.ldl_solve(LD, b) - kkt.ldl_solve_plain(LD, b))
+                    .abs().max())
+        raw = kkt.raw_launcher("ldl_solve", LD, b, torch.empty_like(b))
+        LDlib, piv = torch.linalg.ldl_factor(K)
+        plain = lambda: kkt.ldl_solve_plain(LD, b)
+        library = lambda: torch.linalg.ldl_solve(LDlib, piv, b[..., None])
+        bound, by = s_bound, s_by
+    check(err <= KERNEL_ABS_TOL, f"{name} vs plain at {B}x{M}: {err}")
+    return {"shape": [B, M], "max_abs_err": err,
+            "device_ms": device_ms(torch, raw, f"{name}_kernel"),
+            "ms": time_ms(raw, 200), "plain_ms": time_ms(plain, 10),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(library, 5, 1)}
+
+
 def phase_stage_kernels(torch, dev):
     """Both kernels against their plain versions at the stage sweep's
     shapes (bitwise), and their times there."""
-    from agentlib_mpc_torch.ops import kkt
-
     def batch(B, M, seed):
         n = (M + 1) // 2 + 1
         K_np, b_np = quasi_definite_batch(B, n, M - n, seed)
@@ -661,36 +756,10 @@ def phase_stage_kernels(torch, dev):
     rows = {"ldl_factor": [], "ldl_solve": []}
     for seed, (B, M) in enumerate(STAGE_FACTOR_SHAPES):
         K, _ = batch(B, M, 100 + seed)
-        LD_plain = kkt.ldl_factor_plain(K)
-        err = float((kkt.ldl_factor(K) - LD_plain).abs().max())
-        check(err <= KERNEL_ABS_TOL, f"ldl_factor vs plain at {B}x{M}: {err}")
-        raw = kkt.raw_launcher("ldl_factor", K, torch.empty_like(K))
-        (bound, by), _ = bounds(B, M)
-        rows["ldl_factor"].append({
-            "shape": [B, M], "max_abs_err": err,
-            "device_ms": device_ms(torch, raw, "ldl_factor_kernel"),
-            "ms": time_ms(raw, 200),
-            "plain_ms": time_ms(lambda: kkt.ldl_factor_plain(K), 10),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(lambda: torch.linalg.ldl_factor(K), 5, 1)})
+        rows["ldl_factor"].append(kernel_row(torch, "ldl_factor", K, None))
     for seed, (B, M) in enumerate(STAGE_SOLVE_SHAPES):
         K, b = batch(B, M, 200 + seed)
-        LD = kkt.ldl_factor_plain(K)
-        err = float((kkt.ldl_solve(LD, b) - kkt.ldl_solve_plain(LD, b))
-                    .abs().max())
-        check(err <= KERNEL_ABS_TOL, f"ldl_solve vs plain at {B}x{M}: {err}")
-        raw = kkt.raw_launcher("ldl_solve", LD, b, torch.empty_like(b))
-        LDlib, piv = torch.linalg.ldl_factor(K)
-        _, (bound, by) = bounds(B, M)
-        rows["ldl_solve"].append({
-            "shape": [B, M], "max_abs_err": err,
-            "device_ms": device_ms(torch, raw, "ldl_solve_kernel"),
-            "ms": time_ms(raw, 200),
-            "plain_ms": time_ms(lambda: kkt.ldl_solve_plain(LD, b), 10),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(
-                lambda: torch.linalg.ldl_solve(LDlib, piv, b[..., None]),
-                5, 1)})
+        rows["ldl_solve"].append(kernel_row(torch, "ldl_solve", K, b))
     emit({"phase": "stage_kernels", **rows})
     return rows
 
@@ -723,7 +792,8 @@ def phase_long_horizon(torch, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
+                                   LONG_N_WARM)
     totals = launch_totals(kkt)
     copied = kkt.ldl_solve_many.copied_bytes
     peak = torch.cuda.max_memory_allocated(dev)
@@ -776,7 +846,7 @@ def phase_long_horizon(torch, dev, smi):
                                     dt=LONG_DT)
         t0 = time.perf_counter()
         refs[name], _, _ = run_steps(torch, step_r, args_r,
-                                     torch.cuda.synchronize)
+                                     torch.cuda.synchronize, LONG_N_WARM)
         seconds[name] = time.perf_counter() - t0
     rows = []
     for k, (o32, o64, olu) in enumerate(zip(outs, refs["f64"],
@@ -920,7 +990,8 @@ def launch_totals(kkt):
 
 def phase_path_shapes(torch, dev, by_path):
     """Every (B, M) a path launched either was held bitwise against the
-    plain version in the kernels/stage_kernels phases, or is held here."""
+    plain version in the kernels/stage_kernels phases, or is held here,
+    with its times beside its bound and the library yardstick."""
     from agentlib_mpc_torch.ops import kkt
 
     checked = {"ldl_factor": {(B, M) for B, M, _ in CHECK_SHAPES}
@@ -939,19 +1010,13 @@ def phase_path_shapes(torch, dev, by_path):
                 K_np, b_np = quasi_definite_batch(B, n, M - n, 300 + M)
                 K = torch.as_tensor(K_np, dtype=torch.float32, device=dev)
                 b = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
-                LD = kkt.ldl_factor_plain(K)
-                err = float((kkt.ldl_factor(K) - LD).abs().max()) \
-                    if name == "ldl_factor" else \
-                    float((kkt.ldl_solve(LD, b) - kkt.ldl_solve_plain(LD, b))
-                          .abs().max())
-                check(err <= KERNEL_ABS_TOL,
-                      f"{name} vs plain at {B}x{M} ({path}): {err}")
-                rows.append({"kernel": name, "shape": [B, M], "path": path,
-                             "max_abs_err": err})
+                rows.append({"kernel": name, "path": path,
+                             **kernel_row(torch, name, K, b)})
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
     emit({"phase": "path_shapes",
           "launched": {path: t.get("shapes") for path, t in by_path.items()},
           "checked_here": rows})
+    return rows
 
 
 def linear_quality_rows(torch, ocp, outs32, outs64):
@@ -1196,7 +1261,8 @@ def phase_qp_day_ahead(torch, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
+                                   LONG_N_WARM)
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     # the banded sweep: S factors and S-1 many-rhs solves, then two
@@ -1224,7 +1290,8 @@ def phase_qp_day_ahead(torch, dev, smi):
                                 record_stats=True, horizon=LONG_N,
                                 dt=LONG_DT, model="linear", inner="qp")
     t0 = time.perf_counter()
-    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize)
+    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize,
+                            LONG_N_WARM)
     seconds64 = time.perf_counter() - t0
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
     rows = linear_quality_rows(torch, ocp, outs, outs64)
@@ -1254,7 +1321,8 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
+                                   LONG_N_WARM)
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = check_launches_per_iteration(
@@ -1312,6 +1380,401 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     return totals
 
 
+def room_config(i: int, load: float) -> dict:
+    """One room's admm_local config (examples/fused_fleet_rooms.py's,
+    with the model named by its zoo name)."""
+    return {
+        "id": f"Room_{i}",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "admm", "type": "admm_local",
+             "optimization_backend": {
+                 "type": "jax_admm",
+                 "model": {"class": "CooledRoom"},
+                 "discretization_options": {"collocation_order": 2,
+                                            "collocation_method": "legendre"},
+                 "solver": {"max_iter": 30},
+             },
+             "time_step": FLEET_DT,
+             "prediction_horizon": FLEET_HORIZON,
+             "max_iterations": FLEET_MAX_ITERATIONS,
+             "penalty_factor": 20.0,
+             "parameters": [{"name": "s_T", "value": 1.0}],
+             "inputs": [
+                 {"name": "load", "value": load},
+                 {"name": "T_in", "value": FLEET_T_IN},
+                 {"name": "T_upper", "value": FLEET_UB},
+             ],
+             "states": [{"name": "T", "value": FLEET_START}],
+             "couplings": [
+                 {"name": "mDot", "alias": "mDotShared", "value": 0.02,
+                  "lb": 0.0, "ub": 0.05},
+             ]},
+        ],
+    }
+
+
+def fused_engine(torch, model: str, dev, dtype, pinned: bool = False,
+                 kkt_method: str = "auto"):
+    """(engine, thetas, ocp, alias): bench.py's --mesh-ab workload at one
+    device (``model="zone"``) or the linear fleet (``"linear"``) through
+    FusedADMM; ``pinned`` zeroes the Boyd exits."""
+    from agentlib_mpc_torch.ops.solver import SolverOptions
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.parallel.fused_admm import (
+        AgentGroup, FusedADMM, FusedADMMOptions, pad_group_to_devices)
+
+    ocp_fn, tail, _zbar0, rho = admm_step.MODELS[model]
+    if model == "zone":
+        rho = FUSED_RHO
+    ocp = ocp_fn()
+    control = ocp.control_names[0]
+    alias = "mDotCoolAir" if model == "zone" else control
+    n = admm_step.N_AGENTS
+    cold = SolverOptions(**admm_step.SOLVER_BASE, mu_init=admm_step.COLD_MU,
+                         kkt_method=kkt_method)
+    warm = cold._replace(max_iter=admm_step.WARM_BUDGET,
+                         mu_init=admm_step.WARM_MU)
+    exits = dict(abs_tol=0.0, rel_tol=0.0, primal_tol=0.0,
+                 dual_tol=0.0) if pinned else {}
+    opts = FusedADMMOptions(max_iterations=FUSED_ADMM_ITERS, rho=rho,
+                            **exits)
+    x0s, loads = admm_step.fleet_inputs(n)
+    base = ocp.default_params(device=dev, dtype=dtype)
+    d_rows = torch.tensor([[load, *tail] for load in loads], dtype=dtype,
+                          device=dev)
+    thetas = base._replace(
+        x0=torch.as_tensor(x0s, dtype=dtype, device=dev).reshape(n, 1),
+        d_traj=d_rows[:, None, :].expand(n, ocp.N, 3).contiguous(),
+        **{k: v.expand((n,) + v.shape).contiguous()
+           for k, v in base._asdict().items() if k not in ("x0", "d_traj")})
+    group = AgentGroup(name="zones", ocp=ocp, n_agents=n,
+                       couplings={alias: control}, solver_options=cold,
+                       warm_solver_options=warm)
+    group, thetas, mask = pad_group_to_devices(group, thetas, 1)
+    engine = FusedADMM([group], opts, active=[mask], device=dev)
+    return engine, thetas, ocp, alias
+
+
+def fused_rounds(torch, engine, thetas, steps: int, sync):
+    """``steps`` rounds (the first cold); per round wall ms, the state,
+    trajectories and stats, and the kernel launches."""
+    from agentlib_mpc_torch.ops import kkt
+
+    state = engine.init_state([thetas])
+    rows = []
+    for _ in range(steps):
+        before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+        t0 = time.perf_counter()
+        state, trajs, stats = engine.step(state, [thetas])
+        sync()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "state": state, "trajs": trajs, "stats": stats,
+                     "launches": (kkt.ldl_factor.launches - before[0],
+                                  kkt.ldl_solve.launches - before[1])})
+    return rows
+
+
+def check_fused_launches(name, rows, cold_budget, warm_budget):
+    """Every round: exactly 6 solve launches per factor launch (one factor
+    and the predictor/corrector re-solves with two refinement solves each
+    per inner iteration), at most the inner budgets' factor launches."""
+    per_round = []
+    for k, row in enumerate(rows):
+        nf, ns = row["launches"]
+        its = int(row["stats"].iterations)
+        limit = cold_budget + (its - 1) * warm_budget
+        check(nf > 0 and ns == 6 * nf,
+              f"{name} round {k}: {nf} factor / {ns} solve launches (must "
+              f"be 1:6)")
+        check(nf <= limit,
+              f"{name} round {k}: {nf} factor launches for {its} ADMM "
+              f"iterations (at most {limit})")
+        per_round.append({"admm_iterations": its, "factor_launches": nf,
+                          "solve_launches": ns, "ms": row["ms"],
+                          "converged": bool(row["stats"].converged)})
+    return per_round
+
+
+def fused_quality_rows(torch, alias, rows, rows64):
+    """Per round: z̄ and spread max|u − z̄| of the card's engine against
+    the CPU's f64 engine, and the per-lane |Δu| statistics."""
+    out = []
+    for k, (r32, r64) in enumerate(zip(rows, rows64)):
+        u32 = r32["trajs"][0]["u"][..., 0].double().cpu()
+        u64 = r64["trajs"][0]["u"][..., 0].double().cpu()
+        z32 = r32["state"].zbar[alias].double().cpu()
+        z64 = r64["state"].zbar[alias].double().cpu()
+        du = (u32 - u64).abs()
+        outliers = du.amax(dim=-1) > QP_U_OUTLIER_W
+        out.append({
+            "round": k, "f64_finite": bool(torch.isfinite(u64).all()),
+            "iterations": [int(r32["stats"].iterations),
+                           int(r64["stats"].iterations)],
+            "zbar_max_abs_diff": float((z32 - z64).abs().max()),
+            "spread": float((u32 - z32).abs().max()),
+            "spread_f64": float((u64 - z64).abs().max()),
+            "spread_diff": abs(float((u32 - z32).abs().max())
+                               - float((u64 - z64).abs().max())),
+            "u_median_abs_diff": float(du.median()),
+            "u_max_abs_diff": float(du.max()),
+            "lanes_over_outlier": int(outliers.sum()),
+            "lane_outlier_share": float(outliers.double().mean())})
+    return out
+
+
+def phase_fused(torch, dev, smi, model: str):
+    """One fused engine at 256 zones on the card: launch counts of a cold
+    and three warm rounds, a profiled warm round, the quality gate
+    against f64 on the CPU with pinned exits, and (zone fleet) a
+    quarantined NaN lane."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.parallel import admm_step
+
+    name = "fused_slice" if model == "zone" else "fused_linear"
+    t0 = time.perf_counter()
+    engine, thetas, ocp, alias = fused_engine(torch, model, dev,
+                                              torch.float32)
+    build_s = time.perf_counter() - t0
+    if model == "linear":
+        check(engine.group_uses_qp == (True,),
+              f"{name}: the linear group is not routed to the QP "
+              f"({engine.group_uses_qp})")
+    else:
+        check(engine.group_uses_qp == (False,),
+              f"{name}: the zone group was routed to the QP")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    rows = fused_rounds(torch, engine, thetas, 1 + N_WARM,
+                        torch.cuda.synchronize)
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_round = check_fused_launches(name, rows, admm_step.COLD_BUDGET,
+                                     admm_step.WARM_BUDGET)
+    M = ocp.n_w + ocp.n_g
+    check(totals["shapes"]["ldl_factor"] == [(admm_step.N_AGENTS, M)],
+          f"{name}: factor shapes {totals['shapes']['ldl_factor']}, "
+          f"expected the dense LDLᵀ at ({admm_step.N_AGENTS}, {M})")
+    last = rows[-1]
+    for leaf in (*last["state"].w, *last["state"].y, *last["state"].z,
+                 *last["state"].zbar.values()):
+        check(bool(torch.isfinite(leaf).all()), f"non-finite {name} state")
+    warm_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    u = last["trajs"][0]["u"][..., 0]
+    emit({"phase": name, "zones": admm_step.N_AGENTS, "model": model,
+          "dtype": "float32", "kkt_size": M,
+          "group_uses_qp": list(engine.group_uses_qp),
+          "build_seconds": build_s, "cold_round_ms": rows[0]["ms"],
+          "warm_round_ms": [r["ms"] for r in rows[1:]],
+          "warm_round_ms_median": warm_ms, "per_round": per_round,
+          "launches": totals,
+          "spread": float((u - last["state"].zbar[alias]).abs().max()),
+          "peak_memory_bytes": peak, "nvidia_smi": smi})
+    state = last["state"]
+    phase_profile(torch, None, None, None, warm_ms, name=f"{name}_profile",
+                  run=lambda: engine.step(state, [thetas]))
+
+    # quality: pinned exits, the card's engine against the CPU's f64 (the
+    # linear fleet: FUSED_LINEAR_* above)
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    t0 = time.perf_counter()
+    e64, th64, _, _ = fused_engine(torch, model, "cpu", torch.float64,
+                                   pinned=True, kkt_method="ldl")
+    rows64 = fused_rounds(torch, e64, th64, FUSED_QUALITY_STEPS,
+                          lambda: None)
+    seconds64 = time.perf_counter() - t0
+    runs = {"f32 auto": (torch.float32, "auto")}
+    if model == "linear":
+        runs.update({"f32 lu": (torch.float32, "lu"),
+                     "f64 lu": (torch.float64, "lu")})
+    gated = "f32 auto" if model == "zone" else "f64 lu"
+    rows = {}
+    for key, (dtype, method) in runs.items():
+        e, th, _, _ = fused_engine(torch, model, dev, dtype, pinned=True,
+                                   kkt_method=method)
+        rounds = fused_rounds(torch, e, th, FUSED_QUALITY_STEPS,
+                              torch.cuda.synchronize)
+        rows[key] = fused_quality_rows(torch, alias, rounds, rows64)
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    gates = ({"zbar_tol": ZBAR_TOL, "spread_tol": SPREAD_TOL}
+             if model == "zone" else {"f64_tol_W": FUSED_LINEAR_F64_TOL_W})
+    emit({"phase": f"{name}_quality",
+          "reference": "f64 plain on cpu, Boyd exits pinned to zero",
+          "f64_seconds": seconds64,
+          "default_exit_iterations": [r["admm_iterations"]
+                                      for r in per_round],
+          "gated": gated, **gates, "rounds": rows})
+    for row in rows[gated]:
+        k = row["round"]
+        check(row["f64_finite"], f"{name} round {k}: non-finite f64")
+        check(row["iterations"] == [FUSED_ADMM_ITERS] * 2,
+              f"{name} round {k}: iterations {row['iterations']} with "
+              f"pinned exits")
+        if model == "zone":
+            check(row["zbar_max_abs_diff"] <= ZBAR_TOL,
+                  f"{name} round {k}: z̄ differs from f64 by "
+                  f"{row['zbar_max_abs_diff']}")
+            check(row["spread_diff"] <= SPREAD_TOL,
+                  f"{name} round {k}: spread differs from f64 by "
+                  f"{row['spread_diff']}")
+        else:
+            check(max(row["zbar_max_abs_diff"], row["u_max_abs_diff"])
+                  <= FUSED_LINEAR_F64_TOL_W,
+                  f"{name} round {k}: the card's f64 rounds differ from "
+                  f"the CPU's by {row['zbar_max_abs_diff']} W (z̄), "
+                  f"{row['u_max_abs_diff']} W (u)")
+    if model == "zone":
+        phase_quarantine(torch, engine, state, thetas, name)
+    return totals
+
+
+def phase_quarantine(torch, engine, state, thetas, name):
+    """Two more warm rounds with one lane's x0 set to NaN. A NaN theta
+    alone leaves the lane's iterate finite (the solver's step guard keeps
+    the warm start and the lane reports failure), which the first round
+    shows; the second also sets the lane's carried warm start to NaN (the
+    JAX package's own quarantine test): that lane alone is quarantined
+    and the returned state stays finite."""
+    from agentlib_mpc_torch.ops import kkt
+
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    lane = thetas.x0.shape[0] * 3 // 8
+    x0 = thetas.x0.clone()
+    x0[lane] = float("nan")
+    poisoned = thetas._replace(x0=x0)
+    _, _, stats_theta = engine.step(state, [poisoned])
+    w = state.w[0].clone()
+    w[lane] = float("nan")
+    state, _trajs, stats = engine.step(state._replace(w=(w,)), [poisoned])
+    torch.cuda.synchronize()
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    counts = stats.lane_quarantined[0].cpu()
+    others = torch.cat([counts[:lane], counts[lane + 1:]])
+    leaves = [*state.w, *state.y, *state.z, *state.zbar.values(),
+              *state.rho.values(), *(t for v in state.lam.values()
+                                     for t in v)]
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves)
+    emit({"phase": f"{name}_quarantine", "nan_lane": lane,
+          "nan_x0_only": {
+              "lane_quarantined": int(stats_theta.lane_quarantined[0][lane]),
+              "iterations": int(stats_theta.iterations)},
+          "lane_quarantined": int(counts[lane]),
+          "other_lanes_quarantined": int(others.sum()),
+          "quarantined_per_iteration": stats.quarantined.tolist(),
+          "iterations": int(stats.iterations), "state_finite": finite})
+    check(int(counts[lane]) >= 1, f"{name}: the NaN lane was not quarantined")
+    check(int(others.sum()) == 0, f"{name}: healthy lanes were quarantined")
+    check(finite, f"{name}: non-finite state after the quarantined round")
+
+
+def phase_fused_fleet(torch, dev, smi):
+    """FusedFleet over 256 room configs on the card: three control
+    intervals in closed loop (round, plant step of every room, feedback,
+    shift), a checkpoint after the first, restored into a fresh fleet
+    whose next round must equal the uninterrupted one."""
+    import tempfile
+
+    from agentlib_mpc_torch.models.zoo import CooledRoom
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.parallel.config_bridge import FusedFleet
+
+    loads = np.linspace(80.0, 220.0, FLEET_N)
+    configs = [room_config(i, float(loads[i])) for i in range(FLEET_N)]
+    t0 = time.perf_counter()
+    fleet = FusedFleet.from_configs(configs, device=dev,
+                                    dtype=torch.float32)
+    build_s = time.perf_counter() - t0
+    ocp = fleet.engine.groups[0].ocp
+    check(len(fleet.engine.groups) == 1, "identical rooms must batch")
+    opts = fleet.engine.groups[0].solver_options
+    # a solve and two refinement solves per re-solve; the corrector (off
+    # in these configs) adds a second re-solve
+    solves_per_factor = 6 if opts.corrector else 3
+    factor_limit = lambda its: opts.max_iter + (its - 1) * min(opts.max_iter,
+                                                               6)
+    plant = CooledRoom()
+    p = plant.default_vector("parameters", device=dev,
+                             dtype=torch.float32).expand(FLEET_N, -1)
+    ids = [f"Room_{i}" for i in range(FLEET_N)]
+    temps = torch.full((FLEET_N, 1), FLEET_START, dtype=torch.float32,
+                       device=dev)
+    exo = torch.tensor([[ld, FLEET_T_IN, FLEET_UB] for ld in loads],
+                       dtype=torch.float32, device=dev)
+    intervals, out_round2 = [], None
+    tmp = tempfile.TemporaryDirectory(prefix="fleet_ckpt_")
+    ckpt = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    for k in range(FLEET_INTERVALS):
+        if k == 1:
+            ckpt = fleet.save_checkpoint(f"{tmp.name}/fleet")
+        before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+        t0 = time.perf_counter()
+        out = fleet.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = (kkt.ldl_factor.launches - before[0],
+                    kkt.ldl_solve.launches - before[1])
+        if k == 1:
+            out_round2 = {aid: out[aid]["u"]["mDot"].copy() for aid in ids}
+        mdot = torch.tensor([float(out[aid]["u"]["mDot"][0]) for aid in ids],
+                            dtype=torch.float32, device=dev)
+        x_next, _ = plant.simulate_step(
+            temps, torch.cat([mdot[:, None], exo], dim=-1), p, FLEET_DT)
+        temps = x_next
+        host = temps.cpu().numpy()
+        for i, aid in enumerate(ids):
+            fleet.update_agent(aid, x0=host[i])
+        fleet.advance()
+        torch.cuda.synchronize()
+        intervals.append({
+            "interval": k, "round_ms": step_ms,
+            "interval_ms": (time.perf_counter() - t0) * 1e3,
+            "admm_iterations": out[ids[0]]["iterations"],
+            "converged": out[ids[0]]["converged"],
+            "factor_launches": launches[0], "solve_launches": launches[1],
+            "mdot0_range": [float(mdot.min()), float(mdot.max())],
+            "temperature_range": [float(temps.min()), float(temps.max())]})
+        check(launches[0] > 0
+              and launches[1] == solves_per_factor * launches[0],
+              f"fused_fleet interval {k}: {launches} launches (must be "
+              f"1:{solves_per_factor})")
+        check(launches[0] <= factor_limit(out[ids[0]]["iterations"]),
+              f"fused_fleet interval {k}: {launches[0]} factor launches "
+              f"over the inner budgets")
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(bool(torch.isfinite(temps).all()), "non-finite plant states")
+    check(bool((temps < FLEET_START).all()), "every room must cool")
+
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    resumed = FusedFleet.from_configs(configs, device=dev,
+                                      dtype=torch.float32)
+    resumed.restore_checkpoint(ckpt)
+    out_resumed = resumed.step()
+    torch.cuda.synchronize()
+    tmp.cleanup()
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    resume_diff = max(float(np.abs(out_resumed[aid]["u"]["mDot"]
+                                   - out_round2[aid]).max()) for aid in ids)
+    M = ocp.n_w + ocp.n_g
+    emit({"phase": "fused_fleet", "rooms": FLEET_N, "horizon": ocp.N,
+          "kkt_size": M, "dtype": "float32", "build_seconds": build_s,
+          "solves_per_factor": solves_per_factor,
+          "intervals": intervals, "launches": totals,
+          "resume_max_abs_diff": resume_diff,
+          "resume_tol": FLEET_RESUME_TOL,
+          "nondeterministic_ops": "none on this path (dense derivatives "
+                                  "and the dense LDLᵀ kernels)",
+          "peak_memory_bytes": peak, "nvidia_smi": smi})
+    check(resume_diff <= FLEET_RESUME_TOL,
+          f"fused_fleet: the restored fleet's next round differs by "
+          f"{resume_diff}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1347,7 +1810,14 @@ def main() -> int:
                                     torch, dev, smi)
     by_path["sparse_day_ahead"] = timed(
         "sparse_day_ahead", phase_sparse_day_ahead, torch, dev, smi, lh)
-    timed("path_shapes", phase_path_shapes, torch, dev, by_path)
+    by_path["fused_slice"] = timed("fused_slice", phase_fused, torch, dev,
+                                   smi, "zone")
+    by_path["fused_linear"] = timed("fused_linear", phase_fused, torch, dev,
+                                    smi, "linear")
+    by_path["fused_fleet"] = timed("fused_fleet", phase_fused_fleet, torch,
+                                   dev, smi)
+    new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,
+                       by_path)
     for k in kernels:
         k["launches_by_path"] = {path: totals[k["name"]]
                                  for path, totals in by_path.items()}
@@ -1355,6 +1825,7 @@ def main() -> int:
         for path, n in k["launches_by_path"].items():
             check(n > 0, f"{k['name']} never launched on the {path} path")
         k["stage_shapes"] = stage_rows[k["name"]]
+        k["path_shapes"] = [r for r in new_shapes if r["kernel"] == k["name"]]
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "device_ms_from_events": DEVICE_MS_FROM_EVENTS})

@@ -70,8 +70,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     they raise instead of quietly running on the CPU."""
     from agentlib_mpc_torch.parallel.admm_step import build_step, zone_ocp
 
+    from agentlib_mpc_torch.parallel.config_bridge import FusedFleet
+    from agentlib_mpc_torch.parallel.fused_admm import AgentGroup, FusedADMM
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_step(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         zone_ocp().default_params()
+    group = AgentGroup(name="zones", ocp=zone_ocp(), n_agents=2,
+                       couplings={"c": "mDot"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedADMM([group])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedFleet.from_configs([{"id": "Room_0", "modules": [
+            {"type": "admm_local", "prediction_horizon": 3,
+             "optimization_backend": {"model": {"class": "CooledRoom"}},
+             "couplings": [{"name": "mDot"}]}]}])
