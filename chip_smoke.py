@@ -36,10 +36,10 @@ non-zero without printing a result:
               library yardstick at each.
 7. long_horizon — the 256-zone step a day ahead (N=96, dt=900 s, KKT
               866 of 97 stages of 10), "auto" routed to the stage sweep:
-              one cold and one warm step in f32 (LONG_N_WARM) with the
-              launch counters reset just before and read just after
-              (launches must equal 97 factor and 1 254 solve launches per
-              interior-point iteration), a profiled warm step, then the quality gate: the
+              one cold and three warm steps in f32 with the launch counters
+              reset just before and read just after (launches must equal
+              97 factor and 1 254 solve launches per interior-point
+              iteration), a profiled warm step, then the quality gate: the
               same steps in f64 on the card with kkt_method="lu" (and in
               f32 with "lu", the dense path's own f32 round-off).
 8. shooting — 256 zones at N=96 by multiple shooting (rk4, 3 substeps;
@@ -85,9 +85,10 @@ non-zero without printing a result:
               iterations), and a quarantined NaN lane.
 13. fused_linear — the linear fleet the same way, routed to the QP by
               its certificate. Its f32 rounds run off f64 in the JAX
-              package too (FUSED_LINEAR_F64_TOL_W); they are reported on
-              LDLᵀ and pivoted LU, and the gate holds the card's engine in
-              f64 against the CPU's.
+              package too (FUSED_LINEAR_F64_TOL_W); they are reported, and
+              the gate holds the card's engine in f64 against the CPU's
+              (tests/test_torch_fused_f32.py holds the port's f32 rounds
+              against the JAX package's at 8 zones).
 14. fused_fleet — ``FusedFleet.from_configs`` over 256 room configs of
               ``examples/fused_fleet_rooms.py`` (N=6, degree-2 Legendre
               collocation, KKT 56): three control intervals in closed
@@ -148,12 +149,8 @@ N_WARM = 3
 #: of 5) and of the block substitutions
 STAGE_FACTOR_SHAPES = ((256, 10), (256, 5))
 STAGE_SOLVE_SHAPES = ((2560, 10), (256, 10), (1280, 5), (256, 5))
-#: the day-ahead horizon: 96 intervals of 15 min; its paths (long_horizon
-#: with its references, sparse_day_ahead, qp_day_ahead) run one warm step
-#: after the cold one (three before the fused paths joined; cut to keep the
-#: script's wall time well inside its limit)
+#: the day-ahead horizon: 96 intervals of 15 min
 LONG_N, LONG_DT = 96, 900.0
-LONG_N_WARM = 1
 #: f32 card (stage sweep) vs f64 card ("lu") of the day-ahead steps. z̄:
 #: slice 1's limit. The spread max|u − z̄|, a max over 256 × 96 controls,
 #: is set by the few lanes whose budget-limited solves stall (half the
@@ -227,13 +224,15 @@ FUSED_QUALITY_STEPS = 2
 #: package as in the port: the engine weights the penalty by dt, so
 #: ρ·dt = 1.5 against build_step's 5e-3, a stiffer QP than f32 keeps on
 #: budget-limited solves. The JAX package on the CPU, pinned exits, f32
-#: against f64 (scripts/fused_linear_f32_jax.py): 16 zones on LDLᵀ z̄
+#: against f64 (scripts/fused_linear_f32.py): 16 zones on LDLᵀ z̄
 #: 235 W and median |Δu| 141 W off; 256 zones on pivoted LU z̄ 36 W,
 #: median 15 W, spread 255 W against 1.25 W (ROADMAP Queue 3). So the
-#: card's f32 rounds (LDLᵀ, and pivoted LU beside them) are reported, and
-#: the gate holds the card's engine in f64 (pivoted LU, torch.linalg)
-#: against the CPU's f64 plain LDLᵀ rounds, z̄ and every control. Set
-#: after the first runs: the card's f64 rounds stayed within 6.3e-8 W
+#: card's f32 rounds are reported, and the gate holds the card's engine
+#: in f64 (pivoted LU, torch.linalg) against the CPU's f64 plain LDLᵀ
+#: rounds, z̄ and every control. Set after the first runs: the card's f64
+#: rounds stayed within 6.3e-8 W. The port's f32 rounds are held against
+#: the JAX package's f32 rounds on the CPU at 8 zones, where neither runs
+#: off (tests/test_torch_fused_f32.py)
 FUSED_LINEAR_F64_TOL_W = 1e-3
 #: fused_fleet: examples/fused_fleet_rooms.py at 256 rooms (room_config
 #: below is its config with the model named by its zoo name), three
@@ -562,15 +561,15 @@ def phase_kernels(torch, dev):
     ]
 
 
-def run_steps(torch, step, args, sync, n_warm: int = N_WARM):
-    """One cold step and ``n_warm`` warm steps; per-step wall ms, outputs,
+def run_steps(torch, step, args, sync):
+    """One cold step and N_WARM warm steps; per-step wall ms, outputs,
     stats and (on the card) per-step kernel launches."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.parallel.admm_step import warm_step
 
     outs, ms, launches = [], [], []
     out = None
-    for k in range(1 + n_warm):
+    for k in range(1 + N_WARM):
         before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
         t0 = time.perf_counter()
         out = step(*args) if out is None else warm_step(step, args, out[0])
@@ -591,7 +590,7 @@ def phase_slice(torch, dev):
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.ops.solver import KKT_PATHS
     from agentlib_mpc_torch.parallel.admm_step import (
-        N_AGENTS, build_step, zone_ocp)
+        N_AGENTS, build_step, warm_step, zone_ocp)
 
     step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
                             record_stats=True)
@@ -621,30 +620,25 @@ def phase_slice(torch, dev):
           "spread": sp, "launches_per_step": launches,
           "launches": totals,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)})
-    phase_profile(torch, step, args, outs[-1], float(np.median(ms[1:])))
+    phase_profile(torch, lambda: warm_step(step, args, outs[-1][0]),
+                  float(np.median(ms[1:])))
     return outs, totals, ocp
 
 
-def phase_profile(torch, step, args, out, warm_ms, name="profile",
-                  run=None):
-    """One warm step under the profiler (not counted as main-path
-    launches): device time by operator and the device's busy share of the
-    unprofiled median warm step. ``run`` replaces the control step's warm
-    step (the fused engines' rounds)."""
+def phase_profile(torch, run, warm_ms, name="profile"):
+    """``run()``, one warm step, under the profiler (not counted as
+    main-path launches): device time by operator and the device's busy
+    share of the unprofiled median warm step."""
     from torch.profiler import ProfilerActivity, profile
 
     from agentlib_mpc_torch.ops import kkt
-    from agentlib_mpc_torch.parallel.admm_step import warm_step
 
     before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if run is None:
-            warm_step(step, args, out[0])
-        else:
-            run()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
@@ -777,7 +771,7 @@ def phase_long_horizon(torch, dev, smi):
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.ops.solver import JAC_PATHS, KKT_PATHS
     from agentlib_mpc_torch.parallel.admm_step import (
-        N_AGENTS, build_step, zone_ocp)
+        N_AGENTS, build_step, warm_step, zone_ocp)
 
     ocp = zone_ocp(LONG_N, LONG_DT)
     part = ocp.stage_partition
@@ -792,8 +786,7 @@ def phase_long_horizon(torch, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
-                                   LONG_N_WARM)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
     totals = launch_totals(kkt)
     copied = kkt.ldl_solve_many.copied_bytes
     peak = torch.cuda.max_memory_allocated(dev)
@@ -833,8 +826,9 @@ def phase_long_horizon(torch, dev, smi):
           "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
           "spread": spread(ocp, carry), "peak_memory_bytes": peak,
           "nvidia_smi": smi})
-    profile = phase_profile(torch, step, args, outs[-1], warm_ms,
-                            name="long_horizon_profile")
+    profile = phase_profile(torch,
+                            lambda: warm_step(step, args, outs[-1][0]),
+                            warm_ms, name="long_horizon_profile")
 
     # quality gate: the same steps in f64 on the card through pivoted LU,
     # and in f32 through dense LU (the f32 round-off of the dense path)
@@ -846,7 +840,7 @@ def phase_long_horizon(torch, dev, smi):
                                     dt=LONG_DT)
         t0 = time.perf_counter()
         refs[name], _, _ = run_steps(torch, step_r, args_r,
-                                     torch.cuda.synchronize, LONG_N_WARM)
+                                     torch.cuda.synchronize)
         seconds[name] = time.perf_counter() - t0
     rows = []
     for k, (o32, o64, olu) in enumerate(zip(outs, refs["f64"],
@@ -1093,7 +1087,8 @@ def phase_qp_slice(torch, dev, smi):
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.ops.qp import is_lq, resolve_qp_routing
     from agentlib_mpc_torch.parallel.admm_step import (
-        MODELS, N_AGENTS, augmented_nlp, augmented_theta, build_step)
+        MODELS, N_AGENTS, augmented_nlp, augmented_theta, build_step,
+        warm_step)
 
     log = logging.getLogger("chip_smoke")
     verdicts = {}
@@ -1143,8 +1138,8 @@ def phase_qp_slice(torch, dev, smi):
           "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
           "spread": spread(ocp, carry), "peak_memory_bytes": peak,
           "nvidia_smi": smi})
-    phase_profile(torch, step, args, outs[-1], warm_ms,
-                  name="qp_slice_profile")
+    phase_profile(torch, lambda: warm_step(step, args, outs[-1][0]),
+                  warm_ms, name="qp_slice_profile")
     return outs, totals, step, args, ms[0]
 
 
@@ -1261,8 +1256,7 @@ def phase_qp_day_ahead(torch, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
-                                   LONG_N_WARM)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     # the banded sweep: S factors and S-1 many-rhs solves, then two
@@ -1290,8 +1284,7 @@ def phase_qp_day_ahead(torch, dev, smi):
                                 record_stats=True, horizon=LONG_N,
                                 dt=LONG_DT, model="linear", inner="qp")
     t0 = time.perf_counter()
-    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize,
-                            LONG_N_WARM)
+    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize)
     seconds64 = time.perf_counter() - t0
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
     rows = linear_quality_rows(torch, ocp, outs, outs64)
@@ -1308,7 +1301,8 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     """The zone fleet a day ahead with "auto" (now the stage-sparse
     pipeline), held against long_horizon's outputs."""
     from agentlib_mpc_torch.ops import kkt
-    from agentlib_mpc_torch.parallel.admm_step import N_AGENTS, build_step
+    from agentlib_mpc_torch.parallel.admm_step import (
+        N_AGENTS, build_step, warm_step)
 
     t0 = time.perf_counter()
     step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
@@ -1321,8 +1315,7 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
-                                   LONG_N_WARM)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = check_launches_per_iteration(
@@ -1342,8 +1335,9 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
           "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
           "spread": spread(ocp, carry), "peak_memory_bytes": peak,
           "nvidia_smi": smi})
-    profile = phase_profile(torch, step, args, outs[-1], warm_ms,
-                            name="sparse_day_ahead_profile")
+    profile = phase_profile(torch,
+                            lambda: warm_step(step, args, outs[-1][0]),
+                            warm_ms, name="sparse_day_ahead_profile")
     ranges = ("ipm.eval_jac", "ipm.assemble", "ipm.factor", "ipm.resolve")
     beside = {r: {"sparse_host_ms": profile["solver_phases"].get(
                       r, {}).get("host_ms"),
@@ -1572,8 +1566,8 @@ def phase_fused(torch, dev, smi, model: str):
           "spread": float((u - last["state"].zbar[alias]).abs().max()),
           "peak_memory_bytes": peak, "nvidia_smi": smi})
     state = last["state"]
-    phase_profile(torch, None, None, None, warm_ms, name=f"{name}_profile",
-                  run=lambda: engine.step(state, [thetas]))
+    phase_profile(torch, lambda: engine.step(state, [thetas]), warm_ms,
+                  name=f"{name}_profile")
 
     # quality: pinned exits, the card's engine against the CPU's f64 (the
     # linear fleet: FUSED_LINEAR_* above)
@@ -1586,8 +1580,7 @@ def phase_fused(torch, dev, smi, model: str):
     seconds64 = time.perf_counter() - t0
     runs = {"f32 auto": (torch.float32, "auto")}
     if model == "linear":
-        runs.update({"f32 lu": (torch.float32, "lu"),
-                     "f64 lu": (torch.float64, "lu")})
+        runs["f64 lu"] = (torch.float64, "lu")
     gated = "f32 auto" if model == "zone" else "f64 lu"
     rows = {}
     for key, (dtype, method) in runs.items():

@@ -39,7 +39,10 @@ FLEETS = {"zone": ("ZoneWithSupply", "mDot", "mDotCoolAir", 20.0),
           "linear": ("LinearRCZone", "Q", "Q", admm_step.LINEAR_RHO0)}
 
 
-def build(pkg, model):
+def build(pkg, model, n_zones=N_ZONES, dtype=F64, pinned=False):
+    """(engine, thetas, alias) of one package's fleet. The JAX package
+    takes its precision from the x64 flag in force; the port from
+    ``dtype``. ``pinned`` zeroes the Boyd exits."""
     jax_side = pkg == "j"
     tr, M, SO, zoo = (jtr, J, JSO, jzoo) if jax_side else \
         (ttr, T, TSO, tzoo)
@@ -49,15 +52,18 @@ def build(pkg, model):
     cold = SO(**admm_step.SOLVER_BASE, mu_init=admm_step.COLD_MU,
               kkt_method="ldl")
     group = M.AgentGroup(
-        name="zones", ocp=ocp, n_agents=N_ZONES, couplings={alias: control},
+        name="zones", ocp=ocp, n_agents=n_zones, couplings={alias: control},
         solver_options=cold,
         warm_solver_options=cold._replace(max_iter=admm_step.WARM_BUDGET,
                                           mu_init=admm_step.WARM_MU))
-    opts = M.FusedADMMOptions(max_iterations=admm_step.ADMM_ITERS, rho=rho)
+    exits = dict(abs_tol=0.0, rel_tol=0.0, primal_tol=0.0,
+                 dual_tol=0.0) if pinned else {}
+    opts = M.FusedADMMOptions(max_iterations=admm_step.ADMM_ITERS, rho=rho,
+                              **exits)
     kw = {} if jax_side else {"device": "cpu"}
     engine = M.FusedADMM([group], opts, **kw)
     tail = admm_step.MODELS[model][1]
-    x0s, loads = bench.fleet_inputs(N_ZONES)
+    x0s, loads = bench.fleet_inputs(n_zones)
     rows = []
     for x0, load in zip(x0s, loads):
         d = np.broadcast_to([load, *tail], (admm_step.HORIZON, 3))
@@ -66,8 +72,8 @@ def build(pkg, model):
                                            d_traj=jnp.asarray(d)))
         else:
             rows.append(ocp.default_params(
-                device="cpu", dtype=F64, x0=torch.tensor([x0], dtype=F64),
-                d_traj=torch.tensor(d.copy(), dtype=F64)))
+                device="cpu", dtype=dtype, x0=torch.tensor([x0], dtype=dtype),
+                d_traj=torch.tensor(d.copy(), dtype=dtype)))
     return engine, [M.stack_params(rows)], alias
 
 
