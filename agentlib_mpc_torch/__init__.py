@@ -1,7 +1,8 @@
 """agentlib_mpc_torch — the PyTorch/CUDA port of ``agentlib_mpc_tpu``.
 
 The port mirrors the JAX package's layout (``models/``, ``ops/``,
-``parallel/``, ``utils/``) and holds each module against its JAX
+``parallel/``, ``backends/``, ``runtime/``, ``modules/``, ``resilience/``,
+``telemetry/``, ``utils/``) and holds each module against its JAX
 counterpart in the tests. It imports ``torch`` and numpy only, never
 ``jax`` and nothing of ``agentlib_mpc_tpu``.
 
@@ -11,7 +12,10 @@ shooting with the integrators, the batch-first interior-point solver with
 its dense, stage-sweep and stage-sparse paths, the Mehrotra QP fast path,
 the certifiers that route both fast paths (``lint/fx``), the consensus
 and exchange updates, the fleet engine ``FusedADMM`` with its config entry
-point ``FusedFleet`` (``parallel/``), and the two hand-written Hopper
+point ``FusedFleet`` (``parallel/``), the module path (``LocalMAS`` with
+the ``mpc`` module on the ``jax`` backend, the simulator, the PIDs and the
+actuation guard, over the JAX package's agent configs), and the two
+hand-written Hopper
 kernels of ``ops/kkt.py`` (the pivot-free LDLᵀ factor and solve,
 ``csrc/``).
 

@@ -1,4 +1,20 @@
-"""Backend helpers the config-driven fleet needs: model loading
-(``backend.py``) and the config-to-options translators (``mpc_backend.py``).
-The backends themselves (``OptimizationBackend``, ``create_backend``,
-``JAXBackend`` and the rest) wait for the backends slice."""
+"""Optimization backends: transcribe + solve OCPs for the modules.
+
+Port of ``agentlib_mpc_tpu/backends/``: the registry (string type → class),
+the base class, model loading, the config translators and the central-MPC
+:class:`JAXBackend`. Importing this package registers the ported types;
+the ADMM (ROADMAP Queue 1 item 2b), MHE (2c), MINLP (2d) and ML (3)
+backends are not ported yet, and a config naming one raises
+``NotImplementedError`` naming its item.
+"""
+
+from agentlib_mpc_torch.backends.backend import (
+    DEFERRED_BACKEND_TYPES,
+    OptimizationBackend,
+    VariableReference,
+    backend_types,
+    create_backend,
+    load_model,
+    register_backend,
+)
+from agentlib_mpc_torch.backends.mpc_backend import JAXBackend

@@ -1,15 +1,38 @@
-"""Config translators shared by the backends.
+"""Central-MPC backend and the config translators shared by the backends.
 
-Port of ``agentlib_mpc_tpu/backends/mpc_backend.py:37-108``: reference-style
-``discretization_options`` to ``transcribe`` keywords, a solver config to
-:class:`SolverOptions`, and the two derived attachments (stage partition,
-certified stage-sparse derivative plan). ``JAXBackend`` and the scenario
-helpers wait for the backends slice (ROADMAP Queue 1 item 2).
+Port of ``agentlib_mpc_tpu/backends/mpc_backend.py``. :class:`JAXBackend`
+keeps the JAX package's class and registered names (``"jax"``,
+``"jax_full"``, ``"casadi"``, ``"casadi_basic"``) so reference configs run
+unchanged; where the JAX package compiles one step with ``jax.jit``, the
+port runs the same step as a plain function on tensors on the backend's
+device: input assembly on the host (numpy, as in the JAX package), then
+parameters, bounds, the interior-point (or QP) solve, trajectory
+extraction and the shift on the device, and ``u0``, the trajectories and
+the stats row back to the host once per solve. The scenario-tree helpers
+wait for ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
 
-from agentlib_mpc_torch.ops.solver import SolverOptions
+import time as _time
+from typing import Any
+
+import numpy as np
+import torch
+
+from agentlib_mpc_torch import telemetry
+from agentlib_mpc_torch.backends.backend import (
+    OptimizationBackend,
+    VariableReference,
+    load_model,
+    register_backend,
+)
+from agentlib_mpc_torch.ops.solver import SolverOptions, solve_nlp
+from agentlib_mpc_torch.ops.transcription import transcribe
+from agentlib_mpc_torch.utils.sampling import sample
+
+#: dtype of the QP routing's certificate and probe (the fused engine's)
+_ROUTING_DTYPE = torch.float64
 
 
 def transcription_kwargs_from_config(disc: dict) -> dict:
@@ -68,3 +91,225 @@ def attach_derivative_plan(options: SolverOptions, ocp, nlp=None,
         ocp.default_params(device=device) if theta is None else theta,
         ocp.n_w, log=logger, label=label or "the transcribed OCP",
         device=device)
+
+
+def _solve_qp_one(nlp, w0, theta, w_lb, w_ub, options, y0=None, z0=None,
+                  mu0=None):
+    """One LQ program through the batched QP solver (a batch of one)."""
+    from torch.utils._pytree import tree_map
+
+    from agentlib_mpc_torch.ops.qp import solve_qp
+    from agentlib_mpc_torch.ops.solver import SolverResult, SolverStats
+
+    add = lambda t: t.unsqueeze(0) if isinstance(t, torch.Tensor) else t
+    res = solve_qp(nlp, add(w0), tree_map(add, theta), add(w_lb),
+                   add(w_ub), options, y0=add(y0), z0=add(z0), mu0=mu0)
+    drop = lambda t: t[0] if isinstance(t, torch.Tensor) else t
+    return SolverResult(w=res.w[0], y=res.y[0], z=res.z[0], s=res.s[0],
+                        stats=SolverStats(*(drop(v) for v in res.stats)))
+
+
+@register_backend("jax", "jax_full", "casadi", "casadi_basic")
+class JAXBackend(OptimizationBackend):
+    """Central MPC: states/controls/inputs/params against one model, on the
+    backend's device in its dtype. The JAX package's class name, kept so
+    configs and user code that name it run unchanged."""
+
+    def setup_optimization(self, var_ref: VariableReference,
+                           time_step: float, prediction_horizon: int) -> None:
+        if var_ref.binary_controls:
+            raise NotImplementedError(
+                "this backend ignores binary_controls; mixed-integer "
+                "problems need the MINLP backend, which is not ported yet "
+                "(ROADMAP Queue 1 item 2d)")
+        self.var_ref = var_ref
+        self.time_step = float(time_step)
+        self.N = int(prediction_horizon)
+        self.model = load_model(self.config["model"])
+        trans_kwargs = transcription_kwargs_from_config(
+            self.config.get("discretization_options"))
+        self.ocp = transcribe(self.model, var_ref.controls, N=self.N,
+                              dt=self.time_step, **trans_kwargs)
+        self.solver_options = attach_derivative_plan(
+            attach_stage_partition(
+                solver_options_from_config(self.config.get("solver")),
+                self.ocp),
+            self.ocp, logger=self.logger,
+            label=f"the {type(self).__name__} OCP", device=self.device)
+        self._exo_names = list(self.ocp.exo_names)
+        #: model-default parameters on the device; each solve replaces the
+        #: per-solve leaves
+        self._theta0 = self.ocp.default_params(device=self.device,
+                                               dtype=self.dtype)
+        self._resolve_qp_fast_path()
+        self._build_step_fn()
+        self._reset_warm_start()
+        if self.config.get("precompile"):
+            self._precompile()
+
+    def _resolve_qp_fast_path(self) -> None:
+        """Route LQ problems (linear model, quadratic objective) to the
+        Mehrotra QP solver. Config key ``solver.qp_fast_path``: ``"auto"``
+        (default — the ``lint/fx`` LQ certificate decides at setup, sound
+        for every theta, with the sampled probe as cross-check/fallback),
+        ``"on"`` (force; the caller asserts LQ-ness), ``"off"``."""
+        from agentlib_mpc_torch.ops.qp import is_lq, resolve_qp_routing
+
+        theta0 = self.ocp.default_params(device=self.device,
+                                         dtype=_ROUTING_DTYPE)
+        n = self.ocp.n_w
+
+        def certifier():
+            from agentlib_mpc_torch.lint.fx import certify_lq
+
+            return certify_lq(self.ocp.nlp, theta0, n)
+
+        def probe():
+            return is_lq(self.ocp.nlp, theta0, n)
+
+        self.uses_qp_fast_path = resolve_qp_routing(
+            str((self.config.get("solver") or {})
+                .get("qp_fast_path", "auto")),
+            probe, logger=self.logger,
+            label=f"the {type(self).__name__} OCP",
+            certifier=certifier)
+
+    def _precompile(self) -> None:
+        """One throwaway solve at setup with default inputs (the JAX
+        package compiles its step here; the port has nothing to compile,
+        but the first solve still builds the CUDA kernels and warms the
+        allocator). Telemetry recording is suppressed for it, and the warm
+        start is reset after it."""
+        self._suppress_record = True
+        try:
+            self.solve(0.0, {})
+        finally:
+            self._suppress_record = False
+        self.stats_history.clear()
+        self._reset_warm_start()
+
+    # -- the solve step (device side) ------------------------------------------
+
+    def _build_step_fn(self) -> None:
+        ocp = self.ocp
+        opts = self.solver_options
+        solver_fn = _solve_qp_one if self.uses_qp_fast_path else solve_nlp
+        theta0 = self._theta0
+
+        def step(x0, u_prev, d_traj, p, x_lb, x_ub, u_lb, u_ub,
+                 w_guess, y_guess, z_guess, mu0, t0):
+            theta = theta0._replace(
+                x0=x0, u_prev=u_prev, d_traj=d_traj, p=p, x_lb=x_lb,
+                x_ub=x_ub, u_lb=u_lb, u_ub=u_ub, t0=t0)
+            lb, ub = ocp.bounds(theta)
+            res = solver_fn(ocp.nlp, w_guess, theta, lb, ub, opts,
+                            y0=y_guess, z0=z_guess, mu0=mu0)
+            traj = ocp.trajectories(res.w, theta)
+            u0 = torch.clamp(traj["u"][0], theta.u_lb[0], theta.u_ub[0])
+            w_next = ocp.shift_guess(res.w, theta)
+            return u0, traj, w_next, res.y, res.z, res.stats
+
+        self._step = step
+
+    def _reset_warm_start(self) -> None:
+        theta0 = self._theta0
+        self._w_guess = self.ocp.initial_guess(theta0)
+        self._y_guess = torch.zeros((self.ocp.n_g,), dtype=self.dtype,
+                                    device=self.device)
+        self._z_guess = torch.full((self.ocp.n_h,), 0.1, dtype=self.dtype,
+                                   device=self.device)
+        self._cold = True
+
+    # -- per-solve input assembly (host side) ---------------------------------
+
+    def _collect(self, now: float, variables: dict[str, Any]):
+        model = self.model
+        vr = self.var_ref
+        N = self.N
+        grid_u = np.arange(N) * self.time_step
+
+        def val_of(name, default):
+            v = variables.get(name)
+            return default if v is None else v
+
+        x0 = np.array([
+            float(np.asarray(val_of(n, model.get_var(n).value)).reshape(-1)[0])
+            for n in model.diff_state_names])
+        u_prev = np.array([
+            float(np.asarray(val_of(n, model.get_var(n).value)).reshape(-1)[0])
+            for n in vr.controls]) if vr.controls else np.zeros(0)
+
+        d_traj = np.zeros((N, len(self._exo_names)))
+        for j, name in enumerate(self._exo_names):
+            d_traj[:, j] = sample(val_of(name, model.get_var(name).value),
+                                  grid_u, current=now)
+
+        p = np.array([float(val_of(n, model.get_var(n).value))
+                      for n in model.parameter_names])
+
+        def bound_traj(names, grid, kind):
+            out = np.zeros((len(grid), len(names)))
+            for j, n in enumerate(names):
+                b = variables.get(f"{n}__{kind}")
+                if b is None:
+                    b = getattr(model.get_var(n), kind)
+                out[:, j] = sample(b, grid, current=now)
+            return out
+
+        grid_x = np.arange(N + 1) * self.time_step
+        x_lb = bound_traj(model.diff_state_names, grid_x, "lb")
+        x_ub = bound_traj(model.diff_state_names, grid_x, "ub")
+        u_lb = bound_traj(vr.controls, grid_u, "lb")
+        u_ub = bound_traj(vr.controls, grid_u, "ub")
+        return x0, u_prev, d_traj, p, x_lb, x_ub, u_lb, u_ub
+
+    def solve(self, now: float, variables: dict[str, Any]) -> dict:
+        host = self._collect(now, variables)
+        args = [torch.as_tensor(a, dtype=self.dtype, device=self.device)
+                for a in host]
+        mu0 = self.solver_options.mu_init if self._cold else 1e-2
+        t0 = torch.tensor(float(now), dtype=self.dtype, device=self.device)
+        t_start = _time.perf_counter()
+        with telemetry.span("backend.solve", backend=type(self).__name__,
+                            instance=f"{id(self):x}"):
+            u0, traj, w_next, y_next, z_next, stats = self._step(
+                *args, self._w_guess, self._y_guess, self._z_guess, mu0,
+                t0)
+            # the one transfer of the controls back to the host; it
+            # waits for the solve
+            u0 = u0.cpu().numpy()
+        wall = _time.perf_counter() - t_start
+        self._carry_warm_start(w_next, y_next, z_next, now=now)
+
+        stats_row = self.solver_stats_row(stats, now, wall)
+        self._record_solve(stats_row)
+        return {
+            "u0": {n: float(u0[i])
+                   for i, n in enumerate(self.var_ref.controls)},
+            "traj": {k: v.detach().cpu().numpy() for k, v in traj.items()},
+            "stats": stats_row,
+        }
+
+
+# -- scenario-tree robust solve ----------------------------------------------
+
+
+def scenario_engine(ocp, tree, solver_options: SolverOptions,
+                    fleet_options=None):
+    """One cached single-agent scenario engine per (OCP, tree, options)
+    structure: the backend-level entry to scenario-tree robust MPC, which
+    comes with the scenario-tree slice."""
+    raise NotImplementedError(
+        "scenario_engine needs the scenario-tree slice, which is not ported "
+        "yet (ROADMAP Queue 1 item 4)")
+
+
+def robust_scenario_controls(ocp, theta, tree,
+                             solver_options: SolverOptions = SolverOptions(),
+                             fleet_options=None, state=None):
+    """Solve one agent's scenario tree and return its robust controls
+    (the non-anticipativity projection's first-interval group mean);
+    comes with the scenario-tree slice."""
+    raise NotImplementedError(
+        "robust_scenario_controls needs the scenario-tree slice, which is "
+        "not ported yet (ROADMAP Queue 1 item 4)")

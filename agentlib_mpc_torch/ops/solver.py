@@ -142,6 +142,34 @@ KKT_PATHS = ("lu", "ldl", "stage")
 JAC_PATHS = ("dense", "sparse")
 #: precision-routing codes carried in ``SolverStats.precision_path``
 PRECISION_PATHS = ("full", "mixed")
+#: codes of ``SolverStats.init_point_source`` (the learned warm start of
+#: ROADMAP Queue 1 item 5 sets 1 and 2; the port's solves report -1)
+INIT_POINT_SOURCES = ("plain", "predicted", "predicted_rejected")
+
+
+def _path_name(code, table) -> "str | None":
+    """Decode a path code (int or tensor, possibly batched) against
+    ``table``; None for -1."""
+    if isinstance(code, torch.Tensor):
+        code = code.reshape(-1)[0]
+    i = int(code)
+    return table[i] if 0 <= i < len(table) else None
+
+
+def kkt_path_name(code) -> "str | None":
+    """Human-readable factor path from a ``SolverStats.kkt_path`` value."""
+    return _path_name(code, KKT_PATHS)
+
+
+def jac_path_name(code) -> "str | None":
+    """Human-readable derivative path from ``SolverStats.jac_path``."""
+    return _path_name(code, JAC_PATHS)
+
+
+def init_point_source_name(code) -> "str | None":
+    """Human-readable provenance from one ``init_point_source`` value;
+    None for -1 (callers label those "plain")."""
+    return _path_name(code, INIT_POINT_SOURCES)
 
 
 class SolverStats(NamedTuple):

@@ -22,7 +22,8 @@ dicts and tuples as the engine nests them, comes in through
 :func:`to_numpy` takes the port's back out (the same field names, so
 ``OtherFusedState(**to_numpy(state)._asdict())`` rebuilds the other
 framework's). A fleet's per-group stacked parameters come in through
-:func:`theta_batches_from_numpy`. Floating leaves take the given dtype;
+:func:`theta_batches_from_numpy`, and a module-path backend's warm start
+(``OptimizationBackend.warm_state()``) through :func:`warm_state_from_jax`. Floating leaves take the given dtype;
 integer and boolean leaves keep theirs.
 """
 
@@ -156,3 +157,16 @@ def to_numpy(tree):
     """Every tensor leaf of ``tree`` as a numpy array (on the host)."""
     return tree_map(lambda t: t.detach().cpu().numpy()
                     if isinstance(t, torch.Tensor) else t, tree)
+
+
+def warm_state_from_jax(tree: Mapping, device=None,
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """A backend's warm state from another framework's ``warm_state()``
+    with its arrays as numpy (``w``, ``y``, ``z`` and the ``cold`` flag),
+    in the port's form: tensors on ``device`` (None: the card) in
+    ``dtype``, ready for ``OptimizationBackend.set_warm_state``."""
+    dev = resolve_device(device)
+    out = {k: torch.tensor(np.asarray(tree[k]), dtype=dtype, device=dev)
+           for k in ("w", "y", "z")}
+    out["cold"] = bool(tree["cold"])
+    return out

@@ -96,7 +96,26 @@ non-zero without printing a result:
               ``Model.simulate_step``, ``update_agent``, ``advance``), a
               checkpoint after the first, restored into a fresh fleet whose
               next round must equal the uninterrupted one bitwise.
-15. path_shapes — every (B, M) a path launched is held bitwise against
+15. module_one_room — the module path: ``LocalMAS`` over the two-agent
+              one-room MAS of ``tests/test_mas_one_room.py`` (the ``mpc``
+              module on the ``jax`` backend, N=15, degree-2 Legendre
+              collocation, KKT 137; the ``simulator`` every 10 s) for
+              7 200 s in f32 on the card: launch counters reset just before
+              and read just after (only at (1, 137), one factor and three
+              solves per interior-point iteration), every solve successful
+              with the actuation guard at level 0 and no warm-start reset;
+              first and median warm solve, the simulator's time, a profiled
+              solve; quality: the same MAS in f64 on the CPU with the plain
+              LDLᵀ, comfort error (AIE) and cooling energy within 1 %.
+16. module_linear_qp — ``examples/linear_qp_mpc.py``'s agent the same way
+              (N=8, KKT 74) on the QP fast path: only (1, 74), one factor
+              and six solves per QP iteration; the solves the f32 QP misses
+              on the pivot-free LDLᵀ (the JAX package's too) are counted and
+              must have been replayed by the guard; the plant within half a
+              kelvin of the band; the same loop in f64 on the CPU with the
+              plain LDLᵀ must meet the example's own 295.25 K, and the card's
+              u0 is held against it before the first failed solve.
+17. path_shapes — every (B, M) a path launched is held bitwise against
               the plain versions; a shape no earlier phase timed gets its
               device time, bound, plain and library times.
 
@@ -244,6 +263,45 @@ FLEET_UB, FLEET_T_IN, FLEET_START = 295.15, 290.15, 298.16
 #: no op of the step is nondeterministic (named in the phase's line)
 FLEET_RESUME_TOL = 0.0
 
+
+#: the module path (LocalMAS, one MPC agent, the jax backend, the
+#: simulator, the actuation guard): tests/test_mas_one_room.py's two-agent
+#: MAS at its full size (N=15, degree-2 Legendre collocation, the plant
+#: every 10 s) and examples/linear_qp_mpc.py's agent (N=8, LinearRCZone on
+#: the QP fast path, the plant every 300 s), each 7 200 s of closed loop
+MODULE_UNTIL = 7200.0
+MODULE_N, MODULE_PLANT_DT, MODULE_UB, MODULE_T_IN = 15, 10.0, 295.15, 290.15
+#: card f32 against the CPU's f64 with the plain LDLᵀ, relative, on the
+#: one-room loop's comfort error (AIE) and cooling energy: the JAX
+#: package's one-room example keeps f32 within 0.4 % of f64 (BASELINE.md)
+MODULE_METRIC_RTOL = 0.01
+#: the linear-QP example's own test (which runs in f64): the plant at (or
+#: just at) the band after 7 200 s; held on the f64 CPU loop. The card's
+#: f32 loop replays the failed solves below and ends further from the
+#: band (295.40 K in this phase's first runs, the card being
+#: deterministic here; on the CPU in f32 the JAX package 295.14 K, the
+#: port 295.03 K), so it is held within half a kelvin of the band
+LINEAR_QP_T_LIMIT = 295.25
+LINEAR_QP_F32_T_LIMIT = 295.65
+#: the linear QP in f32 on the pivot-free LDLᵀ misses its tolerance on
+#: some solves of this loop, in the JAX package as in the port (7 200 s,
+#: 25 solves: on the CPU the JAX package in f32 with kkt_method="ldl" 3,
+#: with "lu" none; the port in f32 on the plain LDLᵀ 4; on the card 7, the
+#: same 7 in both of this phase's first runs; f64 none). Its energy cost
+#: is linear in Q, so the primal block's pivots along Q and the states
+#: are the barrier terms and the 1e-8 regularization alone, which f32
+#: does not resolve without pivoting. The guard replays the last accepted
+#: plan for each, so the gate is: at most 10 of the 25, each replayed or
+#: held (never actuated), the fallback never entered
+LINEAR_QP_F32_FAILED_MAX = 10
+#: card f32 against the CPU's f64 on the linear QP's u0 (cooling power,
+#: 0..500 W) on the solves before the first one either loop failed: the
+#: two loops see nearly the same plant until then (the port's f32 and f64
+#: on the CPU agree within 0.08 W there, the card's f32 within 1.25 W:
+#: the optimum is flat in Q, so tol 1e-4 leaves u0 free by watts). After
+#: it the loops part: f64 alone swings between 44 and 500 W, so the later
+#: u0 are reported, not gated. 1 % of the range
+LINEAR_QP_U0_TOL_W = 5.0
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -1768,6 +1826,355 @@ def phase_fused_fleet(torch, dev, smi):
     return totals
 
 
+def one_room_configs(horizon: int = MODULE_N, solver: dict | None = None):
+    """tests/test_mas_one_room.py's two-agent MAS with the model named by
+    its zoo name: the MPC agent and the simulated room."""
+    mpc = {
+        "id": "myMPCAgent",
+        "modules": [
+            {"module_id": "Ag1Com", "type": "local_broadcast"},
+            {
+                "module_id": "myMPC",
+                "type": "mpc",
+                "optimization_backend": {
+                    "type": "jax",
+                    "model": {"class": "OneRoom"},
+                    "discretization_options": {
+                        "collocation_order": 2,
+                        "collocation_method": "legendre",
+                    },
+                    "solver": {"max_iter": 60, **(solver or {})},
+                },
+                "time_step": 300,
+                "prediction_horizon": horizon,
+                "parameters": [
+                    {"name": "s_T", "value": 0.001},
+                    {"name": "r_mDot", "value": 0.01},
+                ],
+                "inputs": [
+                    {"name": "T_in", "value": MODULE_T_IN},
+                    {"name": "load", "value": 150},
+                    {"name": "T_upper", "value": MODULE_UB},
+                ],
+                "controls": [{"name": "mDot", "value": 0.02, "ub": 0.05,
+                              "lb": 0}],
+                "outputs": [{"name": "T_out"}],
+                "states": [
+                    {"name": "T", "value": 298.16, "ub": 303.15,
+                     "lb": 288.15, "alias": "T", "source": "SimAgent"},
+                ],
+            },
+        ],
+    }
+    sim = {
+        "id": "SimAgent",
+        "modules": [
+            {"module_id": "Ag1Com", "type": "local_broadcast"},
+            {
+                "module_id": "room",
+                "type": "simulator",
+                "model": {"class": "OneRoom",
+                          "states": [{"name": "T", "value": 298.16}]},
+                "t_sample": MODULE_PLANT_DT,
+                "outputs": [{"name": "T_out", "value": 298, "alias": "T"}],
+                "inputs": [{"name": "mDot", "value": 0.02, "alias": "mDot"}],
+            },
+        ],
+    }
+    return [mpc, sim]
+
+
+def linear_qp_config(solver: dict | None = None) -> dict:
+    """examples/linear_qp_mpc.py's agent config (MPC and plant in one
+    agent)."""
+    t_upper, start = 295.15, 299.15
+    return {
+        "id": "LinearZone",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {
+                "module_id": "mpc",
+                "type": "mpc",
+                "optimization_backend": {
+                    "type": "jax",
+                    "model": {"class": "LinearRCZone"},
+                    "discretization_options": {"collocation_order": 2},
+                    "solver": {"max_iter": 60, "tol": 1e-4,
+                               **(solver or {})},
+                },
+                "time_step": 300.0,
+                "prediction_horizon": 8,
+                "inputs": [
+                    {"name": "load", "value": 150.0},
+                    {"name": "T_amb", "value": 303.15},
+                    {"name": "T_upper", "value": t_upper},
+                ],
+                "states": [
+                    {"name": "T", "value": start, "ub": 310.15,
+                     "lb": 288.15},
+                    {"name": "T_slack", "value": 0.0},
+                ],
+                "controls": [
+                    {"name": "Q", "value": 0.0, "ub": 500.0, "lb": 0.0},
+                ],
+                "parameters": [
+                    {"name": "C", "value": 100000.0},
+                    {"name": "R", "value": 0.05},
+                    {"name": "s_T", "value": 1.0},
+                    {"name": "r_Q", "value": 1e-3},
+                ],
+            },
+            {
+                "module_id": "sim",
+                "type": "simulator",
+                "model": {"class": "LinearRCZone",
+                          "states": [{"name": "T", "value": start}]},
+                "t_sample": 300.0,
+                "outputs": [{"name": "T_out", "value": start,
+                             "alias": "T"}],
+                "inputs": [{"name": "Q", "value": 0.0, "alias": "Q"}],
+            },
+        ],
+    }
+
+
+def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
+              count_launches: bool):
+    """Build a LocalMAS on ``dev`` in ``dtype`` and run it ``until``: per
+    solve its wall ms, stats row, guard level and (on the card) kernel
+    launches; the simulator's rows and its total wall time. Launch counts
+    are reset just before the run."""
+    import agentlib_mpc_torch.modules  # noqa: F401 - registers the types
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.runtime.mas import LocalMAS
+
+    t0 = time.perf_counter()
+    mas = LocalMAS(configs, env={"rt": False}, device=dev, dtype=dtype)
+    build_s = time.perf_counter() - t0
+    mpc = mas.agents[mpc_at[0]].get_module(mpc_at[1])
+    sim = mas.agents[sim_at[0]].get_module(sim_at[1])
+    solves, sim_s = [], [0.0]
+    solve, sim_step, assess = mpc.backend.solve, sim.do_step, \
+        mpc.guard.assess
+
+    def counted_solve(now, variables):
+        before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+        result = solve(now, variables)
+        solves.append({"factor": kkt.ldl_factor.launches - before[0],
+                       "solve": kkt.ldl_solve.launches - before[1],
+                       "u0": dict(result["u0"])})
+        return result
+
+    def timed_sim_step(*args):
+        t = time.perf_counter()
+        sim_step(*args)
+        sim_s[0] += time.perf_counter() - t
+
+    def recorded_assess(*args, **kwargs):
+        decision = assess(*args, **kwargs)
+        solves[-1]["guard_level"] = mpc.guard.level
+        return decision
+
+    mpc.backend.solve, sim.do_step = counted_solve, timed_sim_step
+    mpc.guard.assess = recorded_assess
+    if count_launches:
+        torch.cuda.synchronize()
+        kkt.reset_launch_counts()
+    t0 = time.perf_counter()
+    mas.run(until=until)
+    wall_s = time.perf_counter() - t0
+    totals = launch_totals(kkt) if count_launches else None
+    for row, stats in zip(solves, mpc.backend.stats_history):
+        row.update(ms=stats["solve_wall_time"] * 1e3,
+                   iterations=stats["iterations"], success=stats["success"],
+                   kkt_path=stats["kkt_path"])
+    return {"mas": mas, "mpc": mpc, "sim": sim, "solves": solves,
+            "totals": totals, "build_s": build_s, "wall_s": wall_s,
+            "sim_s": sim_s[0], "rows": [dict(r) for r in sim._rows]}
+
+
+def check_module_run(name, run, solves_per_factor, shape, failed_max=0):
+    """Every solve ran on the LDLᵀ path; the kernels launched only at
+    ``shape``, one factor and ``solves_per_factor`` solves per inner
+    iteration; the warm start was never reset. Every solve succeeded with the
+    guard at level 0, except at most ``failed_max`` failed solves, each
+    replayed or held by the guard (level 1 or 2: never actuated, never the
+    fallback)."""
+    failed = [k for k, row in enumerate(run["solves"]) if not row["success"]]
+    check(len(failed) <= failed_max,
+          f"{name}: {len(failed)} solves failed (at most {failed_max})")
+    for k, row in enumerate(run["solves"]):
+        level = row.get("guard_level")
+        check(level == 0 if row["success"] else level in (1, 2),
+              f"{name} solve {k}: success {row['success']}, guard level "
+              f"{level}")
+        check(row["kkt_path"] == "ldl",
+              f"{name} solve {k}: kkt_path {row['kkt_path']}")
+        check(row["factor"] == row["iterations"]
+              and row["solve"] == solves_per_factor * row["iterations"],
+              f"{name} solve {k}: {row['factor']} factor / {row['solve']} "
+              f"solve launches for {row['iterations']} iterations (expected "
+              f"1/{solves_per_factor} per iteration)")
+    check(run["mpc"].backend.warm_start_resets == 0,
+          f"{name}: the warm start was reset")
+    for kernel in ("ldl_factor", "ldl_solve"):
+        check(run["totals"]["shapes"][kernel] == [shape],
+              f"{name}: {kernel} launched at {run['totals']['shapes'][kernel]}"
+              f", expected only {shape}")
+    return failed
+
+
+def module_summary(run) -> dict:
+    ms = [row["ms"] for row in run["solves"]]
+    return {"solves": len(ms), "build_seconds": run["build_s"],
+            "run_seconds": run["wall_s"], "first_solve_ms": ms[0],
+            "warm_solve_ms_median": float(np.median(ms[1:])),
+            "warm_solve_ms_max": max(ms[1:]),
+            "iterations_per_solve": [r["iterations"] for r in run["solves"]],
+            "simulator_steps": len(run["rows"]),
+            "simulator_seconds": run["sim_s"]}
+
+
+def one_room_metrics(rows):
+    """AIE (K·h) and cooling energy of the one-room example's printout
+    (examples/one_room_mpc.py) over the simulator's rows."""
+    temps = np.array([r["T_out"] for r in rows])
+    mdot = np.array([r["mDot"] for r in rows])
+    dt_h = MODULE_PLANT_DT / 3600.0
+    return (float(np.sum(np.abs(temps - MODULE_UB)) * dt_h),
+            float(np.sum(mdot * (temps - MODULE_T_IN)) * dt_h))
+
+
+def profile_module_solve(torch, run, name):
+    """One more solve of the finished loop under the profiler, from its
+    last inputs (not counted as main-path launches)."""
+    mpc = run["mpc"]
+    variables = mpc.collect_variables_for_optimization()
+    now = float(mpc.env.now)
+    warm_ms = float(np.median([r["ms"] for r in run["solves"][1:]]))
+    return phase_profile(torch, lambda: mpc.backend.solve(now, variables),
+                         warm_ms, name=name)
+
+
+def phase_module_one_room(torch, dev, smi):
+    """The two-agent one-room MAS through LocalMAS on the card in f32,
+    held against the same MAS in f64 on the CPU with the plain LDLᵀ."""
+    run = drive_mas(torch, one_room_configs(), dev, torch.float32,
+                    MODULE_UNTIL, ("myMPCAgent", "myMPC"),
+                    ("SimAgent", "room"), count_launches=True)
+    backend = run["mpc"].backend
+    opts = backend.solver_options
+    M = backend.ocp.n_w + backend.ocp.n_g
+    # one factor per interior-point iteration; its solve and two
+    # refinement solves (the corrector, off here, adds a second re-solve)
+    per_factor = 6 if opts.corrector else 3
+    ref = drive_mas(torch, one_room_configs(solver={"kkt_method": "ldl"}),
+                    "cpu", torch.float64, MODULE_UNTIL,
+                    ("myMPCAgent", "myMPC"), ("SimAgent", "room"),
+                    count_launches=False)
+    check(all(r["success"] for r in ref["solves"]),
+          "module_one_room: the f64 CPU reference failed a solve")
+    aie, energy = one_room_metrics(run["rows"])
+    aie64, energy64 = one_room_metrics(ref["rows"])
+    mdot = np.array([r["mDot"] for r in run["rows"]])
+    mdot64 = np.array([r["mDot"] for r in ref["rows"]])
+    temps = [r["T_out"] for r in run["rows"]]
+    record = {"phase": "module_one_room", "dtype": "float32", "kkt_size": M,
+              "horizon": MODULE_N, "until_s": MODULE_UNTIL,
+              **module_summary(run), "launches": run["totals"],
+              "solves_per_factor": per_factor,
+              "final_room_temperature_K": temps[-1],
+              "aie_kh": aie, "energy_kwh": energy,
+              "aie_kh_f64_cpu": aie64, "energy_kwh_f64_cpu": energy64,
+              "aie_rel_diff": abs(aie - aie64) / aie64,
+              "energy_rel_diff": abs(energy - energy64) / energy64,
+              "metric_rtol": MODULE_METRIC_RTOL,
+              "mdot_max_abs_diff_f64": float(np.abs(mdot - mdot64).max()),
+              "f64_cpu_run_seconds": ref["wall_s"],
+              "f64_cpu_warm_solve_ms_median": module_summary(
+                  ref)["warm_solve_ms_median"],
+              "guard_level_max": max(r.get("guard_level", -1)
+                                     for r in run["solves"]),
+              "warm_start_resets": backend.warm_start_resets,
+              "nvidia_smi": smi}
+    emit(record)
+    check_module_run("module_one_room", run, per_factor, (1, M))
+    check(np.isfinite(temps).all() and temps[-1] < temps[0],
+          "module_one_room: the room did not cool")
+    check(record["aie_rel_diff"] <= MODULE_METRIC_RTOL
+          and record["energy_rel_diff"] <= MODULE_METRIC_RTOL,
+          f"module_one_room: AIE {aie} / energy {energy} against f64 "
+          f"{aie64} / {energy64}")
+    profile_module_solve(torch, run, "module_one_room_profile")
+    return run["totals"]
+
+
+def phase_module_linear_qp(torch, dev, smi):
+    """examples/linear_qp_mpc.py's agent through LocalMAS on the card in
+    f32 on the QP fast path, held against the same run in f64 on the CPU
+    with the plain LDLᵀ."""
+    run = drive_mas(torch, [linear_qp_config()], dev, torch.float32,
+                    MODULE_UNTIL, ("LinearZone", "mpc"), ("LinearZone", "sim"),
+                    count_launches=True)
+    backend = run["mpc"].backend
+    check(backend.uses_qp_fast_path is True,
+          "module_linear_qp: LinearRCZone did not route to the QP fast path")
+    M = backend.ocp.n_w + backend.ocp.n_g
+    # one factor and two re-solves (predictor, corrector) of one solve and
+    # two refinement steps each per QP iteration
+    failed = [k for k, row in enumerate(run["solves"])
+              if not row["success"]]
+    ref = drive_mas(torch, [linear_qp_config({"kkt_method": "ldl"})], "cpu",
+                    torch.float64, MODULE_UNTIL, ("LinearZone", "mpc"),
+                    ("LinearZone", "sim"), count_launches=False)
+    check(all(r["success"] for r in ref["solves"]),
+          "module_linear_qp: the f64 CPU reference failed a solve")
+    u0 = np.array([row["u0"]["Q"] for row in run["solves"]])
+    u0_64 = np.array([row["u0"]["Q"] for row in ref["solves"]])
+    check(len(u0) == len(u0_64), "module_linear_qp: solve counts differ")
+    gap = np.abs(u0 - u0_64)
+    # the solves before the first failure (of either loop) see the same
+    # plant in both
+    same = min(failed + [len(u0)])
+    t_final = run["rows"][-1]["T_out"]
+    emit({"phase": "module_linear_qp", "dtype": "float32", "kkt_size": M,
+          "horizon": backend.N, "until_s": MODULE_UNTIL,
+          "qp_fast_path": backend.uses_qp_fast_path,
+          **module_summary(run), "launches": run["totals"],
+          "final_plant_temperature_K": t_final,
+          "t_final_limit_K": LINEAR_QP_F32_T_LIMIT,
+          "t_final_limit_f64_K": LINEAR_QP_T_LIMIT,
+          "failed_solves": failed,
+          "failed_solves_max": LINEAR_QP_F32_FAILED_MAX,
+          "failed_solve_iterations": [run["solves"][k]["iterations"]
+                                      for k in failed],
+          "u0_W": u0.tolist(), "u0_f64_cpu_W": u0_64.tolist(),
+          "u0_max_abs_diff_f64_W_before_first_failure":
+              float(gap[:same].max()) if same else None,
+          "solves_before_first_failure": same,
+          "u0_tol_W": LINEAR_QP_U0_TOL_W,
+          "u0_max_abs_diff_f64_W_all": float(gap.max()),
+          "f64_cpu_final_plant_temperature_K": ref["rows"][-1]["T_out"],
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "guard_level_max": max(r.get("guard_level", -1)
+                                 for r in run["solves"]),
+          "guard_level_final": run["mpc"].guard.level,
+          "warm_start_resets": backend.warm_start_resets,
+          "nvidia_smi": smi})
+    check_module_run("module_linear_qp", run, 6, (1, M),
+                     failed_max=LINEAR_QP_F32_FAILED_MAX)
+    check(ref["rows"][-1]["T_out"] <= LINEAR_QP_T_LIMIT,
+          f"module_linear_qp: the f64 CPU loop's plant at "
+          f"{ref['rows'][-1]['T_out']} K")
+    check(t_final <= LINEAR_QP_F32_T_LIMIT,
+          f"module_linear_qp: plant at {t_final} K")
+    check(same > 0 and float(gap[:same].max()) <= LINEAR_QP_U0_TOL_W,
+          f"module_linear_qp: u0 differs from f64 by {gap[:same].max()} W "
+          f"before the first failed solve")
+    profile_module_solve(torch, run, "module_linear_qp_profile")
+    return run["totals"]
+
+
 def main() -> int:
     import torch
 
@@ -1809,6 +2216,10 @@ def main() -> int:
                                     smi, "linear")
     by_path["fused_fleet"] = timed("fused_fleet", phase_fused_fleet, torch,
                                    dev, smi)
+    by_path["module_one_room"] = timed("module_one_room",
+                                       phase_module_one_room, torch, dev, smi)
+    by_path["module_linear_qp"] = timed(
+        "module_linear_qp", phase_module_linear_qp, torch, dev, smi)
     new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,
                        by_path)
     for k in kernels:

@@ -87,3 +87,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
             {"type": "admm_local", "prediction_horizon": 3,
              "optimization_backend": {"model": {"class": "CooledRoom"}},
              "couplings": [{"name": "mDot"}]}]}])
+
+
+def test_module_path_entry_points_default_to_the_card(monkeypatch):
+    """LocalMAS, Agent and create_backend take the card unless given
+    ``device="cpu"``; modules take their agent's device."""
+    import agentlib_mpc_torch.modules  # noqa: F401 - registers types
+    from agentlib_mpc_torch.backends.backend import create_backend
+    from agentlib_mpc_torch.runtime.agent import Agent
+    from agentlib_mpc_torch.runtime.environment import Environment
+    from agentlib_mpc_torch.runtime.mas import LocalMAS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: LocalMAS([{"id": "a", "modules": []}]),
+                  lambda: Agent({"id": "a", "modules": []}, Environment()),
+                  lambda: create_backend({"type": "jax"})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    backend = create_backend({"type": "jax"}, device="cpu")
+    assert backend.device == torch.device("cpu")
+    assert backend.dtype == torch.float32
+    mas = LocalMAS([{"id": "a", "modules": []}], device="cpu",
+                   dtype=torch.float64)
+    assert mas.agents["a"].device == torch.device("cpu")
+    assert mas.agents["a"].dtype == torch.float64
