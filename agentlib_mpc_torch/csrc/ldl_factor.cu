@@ -10,7 +10,10 @@
 // the diagonal, D on it, zeros above it (written, so the output is
 // deterministic). The input is read only on and below its diagonal.
 //
-// Layout: batch-major (B, M, M) float32, contiguous; one block per matrix.
+// Layout: batch-major (B, M, M) float32 or float64, contiguous; one block
+// per matrix. The kernel is a template on the element type: the float64
+// instantiation (ldl_factor_f64) runs the same steps in double, with
+// scalar staging and twice the shared memory.
 //
 // What bounds it on an H100: the function reads the lower triangle,
 // B x M(M+1)/2 x 4 bytes, and writes B x M² x 4 (13.0 MB at B=256, M=92:
@@ -49,9 +52,9 @@
 //   per column; four columns are loaded before any is stored, so their
 //   shared-memory latencies overlap, and a slot whose 32 rows all lie
 //   above the group's first column is skipped by the whole warp.
-// Products and differences are rounded separately (__fmul_rn/__fsub_rn)
-// and the division is IEEE, in the order of the plain PyTorch version, so
-// the result equals it bitwise.
+// Products and differences are rounded separately (sub_mul_rn) and the
+// division is IEEE, in the order of the plain PyTorch version, so the
+// result equals it bitwise in either type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,15 +70,15 @@ constexpr int kRestWarps = kWarps - 1;  // warps 1.. take the trailing update
 constexpr int kGroup = 4;       // columns a rest warp loads before storing
 
 // Write tril(A) as a row-major M x M matrix, zeros above the diagonal.
-template <bool kVec>
-__device__ __forceinline__ void write_tril(const float* __restrict__ A,
-                                           float* __restrict__ dst, int M,
+template <typename T, bool kVec>
+__device__ __forceinline__ void write_tril(const T* __restrict__ A,
+                                           T* __restrict__ dst, int M,
                                            int warp, int lane) {
   if constexpr (kVec) {
     float4* d4 = reinterpret_cast<float4*>(dst);
     const int q = M >> 2;
     for (int i = warp; i < M; i += kWarps) {
-      const float* row = A + tri(i);
+      const T* row = A + tri(i);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
@@ -92,11 +95,11 @@ __device__ __forceinline__ void write_tril(const float* __restrict__ A,
     }
   } else {
     for (int i = warp; i < M; i += kWarps) {
-      const float* row = A + tri(i);
+      const T* row = A + tri(i);
 #pragma unroll
       for (int h = 0; h < kMaxSlots; ++h) {
         const int j = lane + 32 * h;
-        if (j < M) dst[i * M + j] = j <= i ? row[j] : 0.f;
+        if (j < M) dst[i * M + j] = j <= i ? row[j] : T(0);
       }
     }
   }
@@ -106,11 +109,11 @@ __device__ __forceinline__ void write_tril(const float* __restrict__ A,
 // store the raw diagonal (D_c), take d = safe_d(D_c), store l_i = v_i / d
 // below it and publish l and w = v to the buffers. Called by one whole
 // warp, the look-ahead warp.
-template <int R>
-__device__ __forceinline__ void publish_column(float* __restrict__ A,
-                                               float* __restrict__ l_out,
-                                               float* __restrict__ w_out,
-                                               const float (&v)[R],
+template <typename T, int R>
+__device__ __forceinline__ void publish_column(T* __restrict__ A,
+                                               T* __restrict__ l_out,
+                                               T* __restrict__ w_out,
+                                               const T (&v)[R],
                                                const int (&off)[R], int c,
                                                int M, int lane) {
 #pragma unroll
@@ -118,12 +121,12 @@ __device__ __forceinline__ void publish_column(float* __restrict__ A,
     if (lane + 32 * r == c) A[off[r] + c] = v[r];
   }
   __syncwarp(kFullMask);
-  const float d = safe_d(A[tri(c) + c]);
+  const T d = safe_d(A[tri(c) + c]);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = lane + 32 * r;
     if (i > c && i < M) {
-      const float li = v[r] / d;
+      const T li = v[r] / d;
       l_out[i] = li;
       w_out[i] = v[r];
       A[off[r] + c] = li;
@@ -131,19 +134,17 @@ __device__ __forceinline__ void publish_column(float* __restrict__ A,
   }
 }
 
-template <int R, bool kVec>
+template <typename T, int R, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32, 2)
-ldl_factor_kernel(const float* __restrict__ K, float* __restrict__ LD,
-                  int M) {
-  extern __shared__ float smem[];
-  float* A = smem;                  // packed lower triangle, T(M) floats
-  float* lbuf = smem + tri(M);      // [2][M]: l of the published column
-  float* wbuf = lbuf + 2 * M;       // [2][M]: its unscaled w
+ldl_factor_kernel(const T* __restrict__ K, T* __restrict__ LD, int M) {
+  T* A = shared_buffer<T>();     // packed lower triangle, tri(M) elements
+  T* lbuf = A + tri(M);          // [2][M]: l of the published column
+  T* wbuf = lbuf + 2 * M;        // [2][M]: its unscaled w
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t base = static_cast<size_t>(blockIdx.x) * M * M;
 
-  stage_lower<kVec>(K + base, A, M, warp, kWarps, lane);
+  stage_lower<T, kVec>(K + base, A, M, warp, kWarps, lane);
   int off[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) off[r] = tri(lane + 32 * r);
@@ -151,39 +152,38 @@ ldl_factor_kernel(const float* __restrict__ K, float* __restrict__ LD,
 
   // column 0 is final as loaded; the look-ahead warp publishes it
   if (warp == 0) {
-    float v[R];
+    T v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = lane + 32 * r;
-      v[r] = i < M ? A[off[r]] : 0.f;
+      v[r] = i < M ? A[off[r]] : T(0);
     }
-    publish_column<R>(A, lbuf, wbuf, v, off, 0, M, lane);
+    publish_column<T, R>(A, lbuf, wbuf, v, off, 0, M, lane);
   }
 
   for (int k = 0; k + 1 < M; ++k) {
     __syncthreads();  // column k published; step k-1's update done
-    const float* l = lbuf + (k & 1) * M;
-    const float* w = wbuf + (k & 1) * M;
-    float lr[R];
+    const T* l = lbuf + (k & 1) * M;
+    const T* w = wbuf + (k & 1) * M;
+    T lr[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = lane + 32 * r;
-      lr[r] = i > k && i < M ? l[i] : 0.f;
+      lr[r] = i > k && i < M ? l[i] : T(0);
     }
 
     if (warp == 0) {
       // look-ahead: column k+1 first, then publish it for step k+1
       const int c = k + 1;
-      const float wc = w[c];
-      float v[R];
+      const T wc = w[c];
+      T v[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = lane + 32 * r;
-        v[r] = i >= c && i < M
-                   ? __fsub_rn(A[off[r] + c], __fmul_rn(lr[r], wc))
-                   : 0.f;
+        v[r] = i >= c && i < M ? sub_mul_rn(A[off[r] + c], lr[r], wc)
+                               : T(0);
       }
-      publish_column<R>(A, lbuf + ((k + 1) & 1) * M,
+      publish_column<T, R>(A, lbuf + ((k + 1) & 1) * M,
                         wbuf + ((k + 1) & 1) * M, v, off, c, M, lane);
       continue;
     }
@@ -193,17 +193,17 @@ ldl_factor_kernel(const float* __restrict__ K, float* __restrict__ LD,
     for (int j = k + 2 + (warp - 1 + kRestWarps - (k + 2) % kRestWarps) %
                              kRestWarps;
          j < M; j += kGroup * kRestWarps) {
-      float wj[kGroup];
+      T wj[kGroup];
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
         const int jg = j + g * kRestWarps;
-        wj[g] = jg < M ? w[jg] : 0.f;
+        wj[g] = jg < M ? w[jg] : T(0);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (32 * r + 31 < j) continue;  // no row of this slot reaches j
         const int i = lane + 32 * r;
-        float v[kGroup];
+        T v[kGroup];
 #pragma unroll
         for (int g = 0; g < kGroup; ++g) {
           const int jg = j + g * kRestWarps;
@@ -213,7 +213,7 @@ ldl_factor_kernel(const float* __restrict__ K, float* __restrict__ LD,
         for (int g = 0; g < kGroup; ++g) {
           const int jg = j + g * kRestWarps;
           if (i >= jg && i < M) {
-            A[off[r] + jg] = __fsub_rn(v[g], __fmul_rn(lr[r], wj[g]));
+            A[off[r] + jg] = sub_mul_rn(v[g], lr[r], wj[g]);
           }
         }
       }
@@ -221,48 +221,48 @@ ldl_factor_kernel(const float* __restrict__ K, float* __restrict__ LD,
   }
   __syncthreads();
 
-  write_tril<kVec>(A, LD + base, M, warp, lane);
+  write_tril<T, kVec>(A, LD + base, M, warp, lane);
 }
 
-using FactorKernel = void (*)(const float*, float*, int);
+template <typename T>
+using FactorKernel = void (*)(const T*, T*, int);
 
-template <bool kVec>
-FactorKernel pick(int slots) {
+template <typename T, bool kVec>
+FactorKernel<T> pick(int slots) {
   switch (slots) {
-    case 1: return ldl_factor_kernel<1, kVec>;
-    case 2: return ldl_factor_kernel<2, kVec>;
-    case 3: return ldl_factor_kernel<3, kVec>;
-    case 4: return ldl_factor_kernel<4, kVec>;
-    case 5: return ldl_factor_kernel<5, kVec>;
-    case 6: return ldl_factor_kernel<6, kVec>;
-    case 7: return ldl_factor_kernel<7, kVec>;
-    default: return ldl_factor_kernel<8, kVec>;
+    case 1: return ldl_factor_kernel<T, 1, kVec>;
+    case 2: return ldl_factor_kernel<T, 2, kVec>;
+    case 3: return ldl_factor_kernel<T, 3, kVec>;
+    case 4: return ldl_factor_kernel<T, 4, kVec>;
+    case 5: return ldl_factor_kernel<T, 5, kVec>;
+    case 6: return ldl_factor_kernel<T, 6, kVec>;
+    case 7: return ldl_factor_kernel<T, 7, kVec>;
+    default: return ldl_factor_kernel<T, 8, kVec>;
   }
 }
 
-}  // namespace
-
-// Shared memory bytes the kernel needs for an M x M matrix: the packed
-// lower triangle and two pairs of M-vectors (l and w, double-buffered).
-extern "C" long long ldl_factor_smem_bytes(int M) {
-  return (static_cast<long long>(M) * (M + 1) / 2 + 4LL * M) * 4;
+template <typename T>
+long long smem_bytes(int M) {
+  return (static_cast<long long>(M) * (M + 1) / 2 + 4LL * M) *
+         static_cast<long long>(sizeof(T));
 }
 
-// The largest M the kernel takes.
-extern "C" int ldl_factor_max_m() { return kMaxM; }
-
-// K, LD: device pointers to B contiguous float32 M x M matrices.
-// stream: a cudaStream_t. Returns the cudaError_t of the launch.
-extern "C" int ldl_factor_f32(const void* K, void* LD, int B, int M,
-                              void* stream) {
+template <typename T>
+int launch(const void* K, void* LD, int B, int M, void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(K) % 16 == 0 &&
+  const bool vec = sizeof(T) == 4 && M % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(K) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(LD) % 16 == 0;
   const int slots = (M + 31) / 32;
-  const FactorKernel kernel = vec ? pick<true>(slots) : pick<false>(slots);
-  const long long smem = ldl_factor_smem_bytes(M);
+  FactorKernel<T> kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = vec ? pick<T, true>(slots) : pick<T, false>(slots);
+  } else {
+    kernel = pick<T, false>(slots);
+  }
+  const long long smem = smem_bytes<T>(M);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -271,6 +271,31 @@ extern "C" int ldl_factor_f32(const void* K, void* LD, int B, int M,
   }
   kernel<<<B, kWarps * 32, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(K), static_cast<float*>(LD), M);
+      static_cast<const T*>(K), static_cast<T*>(LD), M);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shared memory bytes the kernel needs for an M x M float32 matrix: the
+// packed lower triangle and two pairs of M-vectors (l and w,
+// double-buffered); twice that in float64.
+extern "C" long long ldl_factor_smem_bytes(int M) {
+  return smem_bytes<float>(M);
+}
+
+// The largest M the kernel takes.
+extern "C" int ldl_factor_max_m() { return kMaxM; }
+
+// K, LD: device pointers to B contiguous float32 (ldl_factor_f32) or
+// float64 (ldl_factor_f64) M x M matrices. stream: a cudaStream_t.
+// Returns the cudaError_t of the launch.
+extern "C" int ldl_factor_f32(const void* K, void* LD, int B, int M,
+                              void* stream) {
+  return launch<float>(K, LD, B, M, stream);
+}
+
+extern "C" int ldl_factor_f64(const void* K, void* LD, int B, int M,
+                              void* stream) {
+  return launch<double>(K, LD, B, M, stream);
 }

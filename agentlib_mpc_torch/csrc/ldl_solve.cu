@@ -9,8 +9,10 @@
 // triangle and the diagonal of the factor are read. One right-hand side
 // per system.
 //
-// Layout: LD batch-major (B, M, M) float32 as written by ldl_factor; b and
-// x (B, M) float32; all contiguous. One block per system.
+// Layout: LD batch-major (B, M, M) as written by ldl_factor; b and x
+// (B, M); all contiguous, all float32 (ldl_solve_f32) or all float64
+// (ldl_solve_f64, the same template in double, with scalar staging and
+// twice the shared memory). One block per system.
 //
 // What bounds it on an H100: the function reads the lower triangle and
 // the diagonal of the factor, B x M(M+1)/2 x 4 bytes, plus 2 x B x M x 4
@@ -43,9 +45,9 @@
 // - one system per block, so at B=256 all 132 SMs get work (2 systems per
 //   block would leave some idle). Shared memory per block is the packed
 //   triangle, M(M+1)/2 floats: 17.1 KB at M=92, 115,680 B at M=240.
-// Products and differences are rounded separately (__fmul_rn/__fsub_rn)
-// and the division is IEEE, in the order of the plain PyTorch version, so
-// the result equals it bitwise.
+// Products and differences are rounded separately (sub_mul_rn) and the
+// division is IEEE, in the order of the plain PyTorch version, so the
+// result equals it bitwise in either type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,25 +63,25 @@ constexpr int kStageWarps = 8;   // warps that stage the factor
 // Two blocks per SM serve B=256 on 132 SMs; stating it lets ptxas give a
 // thread up to 128 registers (with the thread count alone it aims at full
 // occupancy, and spills x at R >= 7).
-template <int R, bool kVec>
+template <typename T, int R, bool kVec>
 __global__ void __launch_bounds__(kStageWarps * 32, 2)
-ldl_solve_kernel(const float* __restrict__ LD, const float* __restrict__ b,
-                 float* __restrict__ x_out, int M) {
-  extern __shared__ float P[];  // packed lower triangle, M(M+1)/2 floats
+ldl_solve_kernel(const T* __restrict__ LD, const T* __restrict__ b,
+                 T* __restrict__ x_out, int M) {
+  T* P = shared_buffer<T>();  // packed lower triangle, M(M+1)/2 elements
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t sys = blockIdx.x;
 
   // warp 0 issues its right-hand-side loads before it helps stage
-  float x[R];
+  T x[R];
   if (warp == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = lane + 32 * r;
-      x[r] = i < M ? __ldg(b + sys * M + i) : 0.f;
+      x[r] = i < M ? __ldg(b + sys * M + i) : T(0);
     }
   }
-  stage_lower<kVec>(LD + sys * M * M, P, M, warp, kStageWarps, lane);
+  stage_lower<T, kVec>(LD + sys * M * M, P, M, warp, kStageWarps, lane);
   __syncthreads();  // the factor is staged; the sweeps need no other barrier
   if (warp != 0) return;
   int off[R];
@@ -93,13 +95,11 @@ ldl_solve_kernel(const float* __restrict__ LD, const float* __restrict__ b,
 #pragma unroll 4
     for (int kl = 0; kl < kend; ++kl) {
       const int k = 32 * s + kl;
-      const float xk = __shfl_sync(kFullMask, x[s], kl);
+      const T xk = __shfl_sync(kFullMask, x[s], kl);
 #pragma unroll
       for (int r = s; r < R; ++r) {
         const int i = lane + 32 * r;
-        if (i > k && i < M) {
-          x[r] = __fsub_rn(x[r], __fmul_rn(P[off[r] + k], xk));
-        }
+        if (i > k && i < M) x[r] = sub_mul_rn(x[r], P[off[r] + k], xk);
       }
     }
   }
@@ -115,12 +115,12 @@ ldl_solve_kernel(const float* __restrict__ LD, const float* __restrict__ b,
 #pragma unroll 4
     for (int kl = kend - 1; kl >= 0; --kl) {
       const int k = 32 * s + kl;
-      const float xk = __shfl_sync(kFullMask, x[s], kl);
-      const float* rowk = P + tri(k);
+      const T xk = __shfl_sync(kFullMask, x[s], kl);
+      const T* rowk = P + tri(k);
 #pragma unroll
       for (int r = 0; r <= s; ++r) {
         const int i = lane + 32 * r;
-        if (i < k) x[r] = __fsub_rn(x[r], __fmul_rn(rowk[i], xk));
+        if (i < k) x[r] = sub_mul_rn(x[r], rowk[i], xk);
       }
     }
   }
@@ -131,45 +131,45 @@ ldl_solve_kernel(const float* __restrict__ LD, const float* __restrict__ b,
   }
 }
 
-using SolveKernel = void (*)(const float*, const float*, float*, int);
+template <typename T>
+using SolveKernel = void (*)(const T*, const T*, T*, int);
 
-template <bool kVec>
-SolveKernel pick(int slots) {
+template <typename T, bool kVec>
+SolveKernel<T> pick(int slots) {
   switch (slots) {
-    case 1: return ldl_solve_kernel<1, kVec>;
-    case 2: return ldl_solve_kernel<2, kVec>;
-    case 3: return ldl_solve_kernel<3, kVec>;
-    case 4: return ldl_solve_kernel<4, kVec>;
-    case 5: return ldl_solve_kernel<5, kVec>;
-    case 6: return ldl_solve_kernel<6, kVec>;
-    case 7: return ldl_solve_kernel<7, kVec>;
-    default: return ldl_solve_kernel<8, kVec>;
+    case 1: return ldl_solve_kernel<T, 1, kVec>;
+    case 2: return ldl_solve_kernel<T, 2, kVec>;
+    case 3: return ldl_solve_kernel<T, 3, kVec>;
+    case 4: return ldl_solve_kernel<T, 4, kVec>;
+    case 5: return ldl_solve_kernel<T, 5, kVec>;
+    case 6: return ldl_solve_kernel<T, 6, kVec>;
+    case 7: return ldl_solve_kernel<T, 7, kVec>;
+    default: return ldl_solve_kernel<T, 8, kVec>;
   }
 }
 
-}  // namespace
-
-// Shared memory bytes the kernel needs for an M x M factor: the packed
-// lower triangle.
-extern "C" long long ldl_solve_smem_bytes(int M) {
-  return static_cast<long long>(M) * (M + 1) / 2 * 4;
+template <typename T>
+long long smem_bytes(int M) {
+  return static_cast<long long>(M) * (M + 1) / 2 *
+         static_cast<long long>(sizeof(T));
 }
 
-// The largest M the kernel takes.
-extern "C" int ldl_solve_max_m() { return kMaxM; }
-
-// LD: device pointer to B contiguous float32 M x M factors; b, x: B
-// contiguous float32 vectors of length M. stream: a cudaStream_t.
-// Returns the cudaError_t of the launch.
-extern "C" int ldl_solve_f32(const void* LD, const void* b, void* x, int B,
-                             int M, void* stream) {
+template <typename T>
+int launch(const void* LD, const void* b, void* x, int B, int M,
+           void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(LD) % 16 == 0;
+  const bool vec = sizeof(T) == 4 && M % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(LD) % 16 == 0;
   const int slots = (M + 31) / 32;
-  const SolveKernel kernel = vec ? pick<true>(slots) : pick<false>(slots);
-  const long long smem = ldl_solve_smem_bytes(M);
+  SolveKernel<T> kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = vec ? pick<T, true>(slots) : pick<T, false>(slots);
+  } else {
+    kernel = pick<T, false>(slots);
+  }
+  const long long smem = smem_bytes<T>(M);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -178,7 +178,32 @@ extern "C" int ldl_solve_f32(const void* LD, const void* b, void* x, int B,
   }
   kernel<<<B, kStageWarps * 32, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(LD), static_cast<const float*>(b),
-      static_cast<float*>(x), M);
+      static_cast<const T*>(LD), static_cast<const T*>(b),
+      static_cast<T*>(x), M);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shared memory bytes the kernel needs for an M x M float32 factor: the
+// packed lower triangle; twice that in float64.
+extern "C" long long ldl_solve_smem_bytes(int M) {
+  return smem_bytes<float>(M);
+}
+
+// The largest M the kernel takes.
+extern "C" int ldl_solve_max_m() { return kMaxM; }
+
+// LD: device pointer to B contiguous M x M factors; b, x: B contiguous
+// vectors of length M; all float32 (ldl_solve_f32) or all float64
+// (ldl_solve_f64). stream: a cudaStream_t. Returns the cudaError_t of the
+// launch.
+extern "C" int ldl_solve_f32(const void* LD, const void* b, void* x, int B,
+                             int M, void* stream) {
+  return launch<float>(LD, b, x, B, M, stream);
+}
+
+extern "C" int ldl_solve_f64(const void* LD, const void* b, void* x, int B,
+                             int M, void* stream) {
+  return launch<double>(LD, b, x, B, M, stream);
 }

@@ -4,7 +4,8 @@ Port of ``agentlib_mpc_tpu/modules/``. Importing this package registers
 the ported module types: ``mpc``/``mpc_basic``/``mpc_full``, ``simulator``,
 ``pid``/``fallback_pid``, ``mpc_on_off``/``skip_mpc_intervals``,
 ``data_source``, ``set_point_generator`` and
-``try_predictor``/``input_predictor``. A config naming a type of a later
+``try_predictor``/``input_predictor`` (``runtime.module.create_module``
+imports it before its first lookup). A config naming a type of a later
 slice (ADMM, coordinator, MHE, MINLP MPC, ML) raises
 ``NotImplementedError`` naming its ROADMAP item
 (``runtime.module.DEFERRED_MODULE_TYPES``).

@@ -262,7 +262,7 @@ def _solve_qp(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, max_iter_arg):
     # derivative pipeline + factor path resolved once (constant structure:
     # the QP KKT has the NLP solver's stage-banded form)
     kkt_size = n + m_e if m_e else n
-    jac_path, kkt_path, plan = _resolve_paths(opts, kkt_size, device)
+    jac_path, kkt_path, plan = _resolve_paths(opts, kkt_size, device, dtype)
     precision_path = _resolve_precision(opts)
     # dtype-aware feasibility target, shared definition with solve_nlp
     viol_tol = max(opts.constr_viol_tol, 1e3 * eps)

@@ -286,7 +286,8 @@ def _resolve_precision(opts: SolverOptions) -> str:
     return "full"
 
 
-def _resolve_jacobian(opts: SolverOptions, size: int, device) -> str:
+def _resolve_jacobian(opts: SolverOptions, size: int, device,
+                      dtype: torch.dtype = torch.float32) -> str:
     """Static routing of the derivative pipeline ("dense"/"sparse").
 
     A ``stage_jacobian_plan`` exists only where the stage-structure
@@ -333,22 +334,24 @@ def _resolve_jacobian(opts: SolverOptions, size: int, device) -> str:
         return "dense"
     resolved = kkt_ops.resolve_kkt_method(opts.kkt_method, size, device,
                                           plan.partition,
-                                          opts.stage_min_size)
+                                          opts.stage_min_size, dtype)
     if resolved != "stage" or size < opts.jacobian_min_size:
         return "dense"
     return "sparse"
 
 
-def _resolve_paths(opts: SolverOptions, size: int, device):
-    """(jac_path, kkt_path, plan): the sparse pipeline assembles the
-    banded stage system directly, so it IS the stage factor path (a forced
-    "sparse" skips the size floor)."""
-    jac_path = _resolve_jacobian(opts, size, device)
+def _resolve_paths(opts: SolverOptions, size: int, device,
+                   dtype: torch.dtype = torch.float32):
+    """(jac_path, kkt_path, plan) for a ``size``-dim KKT system of
+    ``dtype``: the sparse pipeline assembles the banded stage system
+    directly, so it IS the stage factor path (a forced "sparse" skips the
+    size floor)."""
+    jac_path = _resolve_jacobian(opts, size, device, dtype)
     if jac_path == "sparse":
         return jac_path, "stage", opts.stage_jacobian_plan
     return jac_path, kkt_ops.resolve_kkt_method(
         opts.kkt_method, size, device, opts.stage_partition,
-        opts.stage_min_size), None
+        opts.stage_min_size, dtype), None
 
 
 # ---- KKT factor / resolve -----------------------------------------------------
@@ -544,7 +547,8 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
     m_h = int(nlp.h(w0[0], lane0).shape[0])
 
     kkt_size = n + m_e if m_e else n
-    jac_path, kkt_path, plan = _resolve_paths(opts, kkt_size, device)
+    jac_path, kkt_path, plan = _resolve_paths(opts, kkt_size, device,
+                                              w0.dtype)
     precision_path = _resolve_precision(opts)
     # the fused line search carries per-candidate DENSE Jacobians
     fused_ls = jac_path == "dense" and opts.fused_ls_jacobian == "on"

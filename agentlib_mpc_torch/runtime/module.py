@@ -68,6 +68,10 @@ def create_module(config: dict, agent) -> "BaseModule":
 
         cls = load_custom_class(type_key["file"], type_key["class_name"])
     else:
+        # importing the package registers every ported type, so a LocalMAS
+        # needs no import of its own
+        import agentlib_mpc_torch.modules  # noqa: F401
+
         if type_key in DEFERRED_MODULE_TYPES and type_key not in MODULE_TYPES:
             raise NotImplementedError(
                 f"module type {type_key!r} is not ported yet: it comes with "

@@ -1,66 +1,211 @@
-"""Telemetry: metrics registry, span tracing and the flight-recorder journal.
+"""Telemetry: the metric families and spans the module path writes.
 
-Port of the JAX-free part of ``agentlib_mpc_torch/telemetry/``: the
-registry, spans and journal modules are copies with their imports renamed,
-and this ``__init__`` keeps the entry points the agent runtime, the
-actuation guard and the backends call. The profiler, the JAX compile
-events, the scrape endpoint, calibration, incident, SLO and regression
-tooling wait for the telemetry slice (ROADMAP Queue 1 item 6); the JAX
-package's ``__init__`` imports its profiler, which imports JAX, so this one
-does not.
+The part of ``agentlib_mpc_tpu/telemetry/`` that the ported call sites
+use — the data broker's counters and dispatch histogram, the actuation
+guard's level gauge and counters, the backends' solver families and the
+``backend.solve`` span — with the JAX package's names, labels and
+semantics (``metrics().get`` returns a counter's or gauge's value and a
+histogram's observation count). Every write sits behind :func:`enabled`
+(on by default; ``configure(enabled=False)`` turns writes into no-ops).
+The exporters, the span aggregates, the flight-recorder journal (off by
+default in the JAX package, so :func:`journal_event` records nothing
+here), the profiler and the rest of the telemetry tooling come with the
+telemetry slice (ROADMAP Queue 1 item 6).
 
     from agentlib_mpc_torch import telemetry
 
     telemetry.counter("broker_messages_total").inc(agent="room_1")
     with telemetry.span("backend.solve", backend="JAXBackend"):
         ...
-    telemetry.metrics().prometheus_text()
-
-Enablement is process-global and on by default;
-``telemetry.configure(enabled=False)`` turns every write into a near-zero
-no-op.
+    telemetry.metrics().get("broker_messages_total", agent="room_1")
 """
 
 from __future__ import annotations
 
-from agentlib_mpc_torch.telemetry.registry import (
-    DEFAULT,
-    ITERATION_BUCKETS,
-    LATENCY_BUCKETS_S,
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-)
-from agentlib_mpc_torch.telemetry.spans import (
-    NOOP_SPAN,
-    RECORDER,
-    SpanRecord,
-    SpanRecorder,
-    current_span,
-    span,
-)
-from agentlib_mpc_torch.telemetry import journal as _journal_mod
+import collections
+import threading
+import time
+from typing import Iterable, Optional
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "SpanRecord",
     "ITERATION_BUCKETS", "LATENCY_BUCKETS_S",
-    "SpanRecord", "SpanRecorder", "NOOP_SPAN",
-    "metrics", "recorder", "span", "current_span",
-    "configure", "enabled", "counter", "gauge", "histogram",
-    "solver_metrics", "reset",
-    "enable_journal", "disable_journal", "journal_active",
-    "journal_event", "journal_set_round",
+    "metrics", "recorder", "span", "configure", "enabled", "counter",
+    "gauge", "histogram", "solver_metrics", "reset", "journal_event",
 ]
+
+#: default histogram buckets for latencies in seconds
+LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+#: default buckets for iteration counts
+ITERATION_BUCKETS = (1.0, 2.0, 3.0, 5.0, 8.0, 12.0, 20.0, 30.0, 50.0, 100.0)
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class _Family:
+    kind = "untyped"
+
+    def __init__(self, registry: "MetricsRegistry", name: str, help: str):
+        self._registry = registry
+        self.name = name
+        self.help = help
+        self._values: dict = {}
+
+    def value(self, **labels) -> Optional[float]:
+        """The value for one label set (None if never written)."""
+        with self._registry._lock:
+            return self._values.get(_label_key(labels))
+
+
+class Counter(_Family):
+    kind = "counter"
+
+    def inc(self, value: float = 1.0, **labels) -> None:
+        if value < 0:
+            raise ValueError(
+                f"counter {self.name!r} cannot decrease (got {value})")
+        if self._registry.enabled:
+            key = _label_key(labels)
+            with self._registry._lock:
+                self._values[key] = self._values.get(key, 0.0) + value
+
+
+class Gauge(_Family):
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        if self._registry.enabled:
+            with self._registry._lock:
+                self._values[_label_key(labels)] = float(value)
+
+
+class Histogram(_Family):
+    kind = "histogram"
+
+    def __init__(self, registry, name: str, help: str,
+                 buckets: Iterable[float] = LATENCY_BUCKETS_S):
+        super().__init__(registry, name, help)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self._counts: dict = {}
+
+    def observe(self, value: float, **labels) -> None:
+        if not self._registry.enabled:
+            return
+        key = _label_key(labels)
+        slot = next((i for i, b in enumerate(self.buckets) if value <= b),
+                    len(self.buckets))
+        with self._registry._lock:
+            counts = self._counts.setdefault(key,
+                                             [0] * (len(self.buckets) + 1))
+            counts[slot] += 1
+            self._values[key] = self._values.get(key, 0) + 1
+
+
+class MetricsRegistry:
+    """The metric families, declared once by name (a second declaration
+    returns the first)."""
+
+    def __init__(self, enabled: bool = True):
+        self._lock = threading.RLock()
+        self._families: dict[str, _Family] = {}
+        self.enabled = bool(enabled)
+
+    def _declare(self, cls, name: str, help: str, **kwargs) -> _Family:
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = self._families[name] = cls(self, name, help, **kwargs)
+            elif not isinstance(fam, cls):
+                raise ValueError(f"metric {name!r} is a {fam.kind}, not a "
+                                 f"{cls.kind}")
+            return fam
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._declare(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._declare(Gauge, name, help)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets=LATENCY_BUCKETS_S) -> Histogram:
+        return self._declare(Histogram, name, help, buckets=buckets)
+
+    def get(self, name: str, **labels) -> Optional[float]:
+        """A family's value for one label set (None for an unknown family
+        or label set); a histogram's is its observation count."""
+        fam = self._families.get(name)
+        return None if fam is None else fam.value(**labels)
+
+    def reset(self) -> None:
+        """Clear every recorded value; declared families stay."""
+        with self._lock:
+            for fam in self._families.values():
+                fam._values.clear()
+                if isinstance(fam, Histogram):
+                    fam._counts.clear()
+
+
+DEFAULT = MetricsRegistry()
+
+
+class SpanRecord:
+    """One timed region; ``duration`` is None while it is open."""
+
+    __slots__ = ("name", "labels", "start", "duration")
+
+    def __init__(self, name: str, labels: dict):
+        self.name = name
+        self.labels = labels
+        self.start = 0.0
+        self.duration: "float | None" = None
+
+    def __enter__(self) -> "SpanRecord":
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.duration = time.perf_counter() - self.start
+        RECORDER.record(self)
+
+
+class _SpanRecorder:
+    """The most recent completed spans (a bounded ring)."""
+
+    def __init__(self, capacity: int = 4096):
+        self._spans: collections.deque = collections.deque(maxlen=capacity)
+
+    def record(self, rec: SpanRecord) -> None:
+        if DEFAULT.enabled:
+            self._spans.append(rec)
+
+    def spans(self) -> list:
+        return list(self._spans)
+
+    def clear(self) -> None:
+        self._spans.clear()
+
+
+RECORDER = _SpanRecorder()
+
+
+class _NoopSpan:
+    duration = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
 
 
 def metrics() -> MetricsRegistry:
-    """The process-global registry."""
     return DEFAULT
 
 
-def recorder() -> SpanRecorder:
-    """The process-global span ring buffer."""
+def recorder() -> _SpanRecorder:
     return RECORDER
 
 
@@ -69,8 +214,8 @@ def enabled() -> bool:
 
 
 def configure(enabled: bool) -> None:
-    """Turn all telemetry writes on/off process-wide (metrics AND spans)."""
-    DEFAULT.configure(enabled)
+    """Turn every telemetry write on or off, process-wide."""
+    DEFAULT.enabled = bool(enabled)
 
 
 def counter(name: str, help: str = "") -> Counter:
@@ -86,13 +231,15 @@ def histogram(name: str, help: str = "",
     return DEFAULT.histogram(name, help, buckets=buckets)
 
 
+def span(name: str, **labels) -> "SpanRecord | _NoopSpan":
+    """A timed region, recorded at exit; a no-op when telemetry is off."""
+    return SpanRecord(name, labels) if DEFAULT.enabled else _NoopSpan()
+
+
 def solver_metrics(registry: "MetricsRegistry | None" = None) -> dict:
-    """The shared solver metric families — ONE declaration site (names,
-    help text, buckets) used by both the backend base class
-    (``OptimizationBackend._record_solve``) and the host-side helper
-    ``ops.solver.record_solver_stats`` (the telemetry slice), so the two
-    writers can never drift apart. Keys: solves, failures, iterations,
-    solve_seconds, kkt_error."""
+    """The solver families the backends write (the JAX package's names,
+    help texts and buckets): solves, failures, iterations, solve_seconds,
+    kkt_error."""
     reg = registry or DEFAULT
     return {
         "solves": reg.counter(
@@ -112,41 +259,13 @@ def solver_metrics(registry: "MetricsRegistry | None" = None) -> dict:
 
 
 def reset() -> None:
-    """Clear all recorded samples and spans (declared metric families
-    survive; so does the journal). Test-isolation / between-runs helper."""
+    """Clear recorded values and spans (declared families stay)."""
     DEFAULT.reset()
     RECORDER.clear()
 
 
-# -- flight recorder ----------------------------------------------------------
-
-
-def enable_journal(path: str, **kwargs):
-    """Install the process-global flight-recorder journal at ``path``
-    (:mod:`agentlib_mpc_torch.telemetry.journal` for the durability
-    contract). Every built-in fault/recovery seam starts recording."""
-    return _journal_mod.enable(path, **kwargs)
-
-
-def disable_journal() -> None:
-    """Close and uninstall the global journal (the file survives)."""
-    _journal_mod.disable()
-
-
-def journal_active():
-    """The global :class:`~agentlib_mpc_torch.telemetry.journal.Journal`,
-    or None when journaling is off."""
-    return _journal_mod.active()
-
-
-def journal_event(etype: str, **fields) -> "int | None":
-    """Record one typed event into the global journal (no-op when
-    journaling is off) — the one call every emit site uses."""
-    if _journal_mod._GLOBAL is None:       # the disabled fast path
-        return None
-    return _journal_mod.record(etype, **fields)
-
-
-def journal_set_round(round_: "int | None") -> None:
-    """Stamp subsequent journal events with this control round."""
-    _journal_mod.set_round(round_)
+def journal_event(etype: str, **fields) -> None:
+    """The flight-recorder seam of the JAX package, whose journal is off
+    unless installed; the port has no journal yet, so nothing is
+    recorded."""
+    return None

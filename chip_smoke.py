@@ -97,7 +97,8 @@ non-zero without printing a result:
               checkpoint after the first, restored into a fresh fleet whose
               next round must equal the uninterrupted one bitwise.
 15. module_one_room — the module path: ``LocalMAS`` over the two-agent
-              one-room MAS of ``tests/test_mas_one_room.py`` (the ``mpc``
+              one-room MAS of ``tests/test_mas_one_room.py``
+              (``agentlib_mpc_torch/reference_configs.py``; the ``mpc``
               module on the ``jax`` backend, N=15, degree-2 Legendre
               collocation, KKT 137; the ``simulator`` every 10 s) for
               7 200 s in f32 on the card: launch counters reset just before
@@ -108,16 +109,20 @@ non-zero without printing a result:
               solve; quality: the same MAS in f64 on the CPU with the plain
               LDLᵀ, comfort error (AIE) and cooling energy within 1 %.
 16. module_linear_qp — ``examples/linear_qp_mpc.py``'s agent the same way
-              (N=8, KKT 74) on the QP fast path: only (1, 74), one factor
-              and six solves per QP iteration; the solves the f32 QP misses
-              on the pivot-free LDLᵀ (the JAX package's too) are counted and
-              must have been replayed by the guard; the plant within half a
-              kelvin of the band; the same loop in f64 on the CPU with the
-              plain LDLᵀ must meet the example's own 295.25 K, and the card's
-              u0 is held against it before the first failed solve.
-17. path_shapes — every (B, M) a path launched is held bitwise against
-              the plain versions; a shape no earlier phase timed gets its
-              device time, bound, plain and library times.
+              (N=8, KKT 74) on the QP fast path, in f64 on the card: the
+              float64 kernels, only at (1, 74), one factor and six solves
+              per QP iteration; every solve successful with the guard at
+              level 0 and no warm-start reset; the plant at or below the
+              example's own 295.25 K; every solve replayed on the CPU in
+              f64 (plain LDLᵀ) from the same inputs and warm state: the
+              same iterations, u0 within 1e-6 W; the same loop in f64 on
+              the CPU is reported beside it. (In f32 the pivot-free LDLᵀ
+              breaks down on this QP in both packages:
+              ``scripts/linear_qp_f32_witness.py``.)
+17. path_shapes — every (B, M) a path launched, in each type it launched
+              in, is held bitwise against the plain versions; a shape no
+              earlier phase timed gets its device time, bound, plain and
+              library times.
 
 Then the run's wall time, the ``nvidia-smi`` line, the ``kernels`` JSON
 line and, last, ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
@@ -127,6 +132,7 @@ package or of ``bench.py``.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -134,10 +140,12 @@ import time
 
 import numpy as np
 
-# H100 SXM data-sheet peaks (dense): device memory rate and fp32 rate
-# outside the tensor cores
+# H100 SXM data-sheet peaks (dense): device memory rate, and the fp32 and
+# fp64 rates outside the tensor cores (NVIDIA's data sheet: 67 and 34
+# TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 
 MAIN_B, MAIN_M, MAIN_N = 256, 92, 61          # zones, KKT dim, primal dim
 CHECK_SHAPES = ((256, 92, 61), (3, 7, 5), (130, 13, 9), (64, 128, 86),
@@ -265,43 +273,32 @@ FLEET_RESUME_TOL = 0.0
 
 
 #: the module path (LocalMAS, one MPC agent, the jax backend, the
-#: simulator, the actuation guard): tests/test_mas_one_room.py's two-agent
-#: MAS at its full size (N=15, degree-2 Legendre collocation, the plant
-#: every 10 s) and examples/linear_qp_mpc.py's agent (N=8, LinearRCZone on
-#: the QP fast path, the plant every 300 s), each 7 200 s of closed loop
+#: simulator, the actuation guard) over the reference's configs
+#: (agentlib_mpc_torch/reference_configs.py): the two-agent one-room MAS
+#: at its full size (N=15, degree-2 Legendre collocation, the plant every
+#: 10 s) and the linear-QP agent (N=8, LinearRCZone on the QP fast path,
+#: the plant every 300 s), each 7 200 s of closed loop
 MODULE_UNTIL = 7200.0
-MODULE_N, MODULE_PLANT_DT, MODULE_UB, MODULE_T_IN = 15, 10.0, 295.15, 290.15
 #: card f32 against the CPU's f64 with the plain LDLᵀ, relative, on the
 #: one-room loop's comfort error (AIE) and cooling energy: the JAX
 #: package's one-room example keeps f32 within 0.4 % of f64 (BASELINE.md)
 MODULE_METRIC_RTOL = 0.01
-#: the linear-QP example's own test (which runs in f64): the plant at (or
-#: just at) the band after 7 200 s; held on the f64 CPU loop. The card's
-#: f32 loop replays the failed solves below and ends further from the
-#: band (295.40 K in this phase's first runs, the card being
-#: deterministic here; on the CPU in f32 the JAX package 295.14 K, the
-#: port 295.03 K), so it is held within half a kelvin of the band
+#: the linear-QP example's own test: the plant at (or just at) the band
+#: after 7 200 s. The loop runs in float64 on the card: in float32 the
+#: pivot-free LDLᵀ of this QP breaks down near convergence in both
+#: packages (a soft-constraint barrier weight near 1e12 condensed into the
+#: primal block cancels every bit of the pivot it leaves; PERF.md,
+#: scripts/linear_qp_f32_witness.py), so float32 cannot meet these gates
 LINEAR_QP_T_LIMIT = 295.25
-LINEAR_QP_F32_T_LIMIT = 295.65
-#: the linear QP in f32 on the pivot-free LDLᵀ misses its tolerance on
-#: some solves of this loop, in the JAX package as in the port (7 200 s,
-#: 25 solves: on the CPU the JAX package in f32 with kkt_method="ldl" 3,
-#: with "lu" none; the port in f32 on the plain LDLᵀ 4; on the card 7, the
-#: same 7 in both of this phase's first runs; f64 none). Its energy cost
-#: is linear in Q, so the primal block's pivots along Q and the states
-#: are the barrier terms and the 1e-8 regularization alone, which f32
-#: does not resolve without pivoting. The guard replays the last accepted
-#: plan for each, so the gate is: at most 10 of the 25, each replayed or
-#: held (never actuated), the fallback never entered
-LINEAR_QP_F32_FAILED_MAX = 10
-#: card f32 against the CPU's f64 on the linear QP's u0 (cooling power,
-#: 0..500 W) on the solves before the first one either loop failed: the
-#: two loops see nearly the same plant until then (the port's f32 and f64
-#: on the CPU agree within 0.08 W there, the card's f32 within 1.25 W:
-#: the optimum is flat in Q, so tol 1e-4 leaves u0 free by watts). After
-#: it the loops part: f64 alone swings between 44 and 500 W, so the later
-#: u0 are reported, not gated. 1 % of the range
-LINEAR_QP_U0_TOL_W = 5.0
+#: each solve of the card's f64 loop (float64 kernels) replayed on the CPU
+#: in f64 (plain LDLᵀ) from the same inputs and warm state: the same
+#: iterations, and u0 (cooling power, 0..500 W) within 1e-6 W, 2e-9 of the
+#: range: the two differ only by the order of f64 sums. The closed loops
+#: themselves are compared by nothing: with tol 1e-4 where a solve stops
+#: moves u0 by watts, so the loop amplifies any rounding (on the CPU, a
+#: start 1e-12 K warmer moves the last u0 by 1.86 W, 1e-9 K by 24 W); the
+#: card's loop and the CPU's are reported side by side
+LINEAR_QP_U0_TOL_W = 1e-6
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -472,20 +469,21 @@ def device_ms(torch, fn, kernel: str, launches: int = 100,
     return ms
 
 
-def bounds(B: int, M: int):
+def bounds(B: int, M: int, itemsize: int = 4):
     """(bound_ms, bound_by) of the factor and the solve on B systems of size
-    M: bytes each function must move (the lower triangle and diagonal it
-    reads, each output written once) over the memory rate, against its
-    flops over the fp32 rate."""
-    tri = B * M * (M + 1) // 2 * 4
-    factor_bytes = tri + B * M * M * 4
+    M of ``itemsize``-byte elements: bytes each function must move (the
+    lower triangle and diagonal it reads, each output written once) over
+    the memory rate, against its flops over the fp32 (fp64) rate."""
+    tri = B * M * (M + 1) // 2 * itemsize
+    factor_bytes = tri + B * M * M * itemsize
     factor_flops = B * sum(n + n * (n + 1) for n in range(M))
-    solve_bytes = tri + 2 * B * M * 4
+    solve_bytes = tri + 2 * B * M * itemsize
     solve_flops = B * (2 * M * (M - 1) + M)
+    rate = FP64_FLOP_PER_S if itemsize == 8 else FP32_FLOP_PER_S
 
     def bound(nbytes, flops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        t_ops = flops / rate * 1e3
         return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
                 else "operations")
 
@@ -773,7 +771,7 @@ def kernel_row(torch, name, K, b):
 
     B, M = K.shape[0], K.shape[-1]
     LD = kkt.ldl_factor_plain(K)
-    (f_bound, f_by), (s_bound, s_by) = bounds(B, M)
+    (f_bound, f_by), (s_bound, s_by) = bounds(B, M, K.element_size())
     if name == "ldl_factor":
         err = float((kkt.ldl_factor(K) - LD).abs().max())
         raw = kkt.raw_launcher("ldl_factor", K, torch.empty_like(K))
@@ -788,8 +786,10 @@ def kernel_row(torch, name, K, b):
         plain = lambda: kkt.ldl_solve_plain(LD, b)
         library = lambda: torch.linalg.ldl_solve(LDlib, piv, b[..., None])
         bound, by = s_bound, s_by
-    check(err <= KERNEL_ABS_TOL, f"{name} vs plain at {B}x{M}: {err}")
-    return {"shape": [B, M], "max_abs_err": err,
+    dtype = str(K.dtype).replace("torch.", "")
+    check(err <= KERNEL_ABS_TOL, f"{name} vs plain at {B}x{M} in {dtype}: "
+          f"{err}")
+    return {"shape": [B, M], "dtype": dtype, "max_abs_err": err,
             "device_ms": device_ms(torch, raw, f"{name}_kernel"),
             "ms": time_ms(raw, 200), "plain_ms": time_ms(plain, 10),
             "bound_ms": bound, "bound_by": by,
@@ -1037,7 +1037,9 @@ def launch_totals(kkt):
     return {"ldl_factor": kkt.ldl_factor.launches,
             "ldl_solve": kkt.ldl_solve.launches,
             "shapes": {"ldl_factor": sorted(kkt.ldl_factor.shapes),
-                       "ldl_solve": sorted(kkt.ldl_solve.shapes)}}
+                       "ldl_solve": sorted(kkt.ldl_solve.shapes)},
+            "shapes_f64": {"ldl_factor": sorted(kkt.ldl_factor.shapes_f64),
+                           "ldl_solve": sorted(kkt.ldl_solve.shapes_f64)}}
 
 
 def phase_path_shapes(torch, dev, by_path):
@@ -1046,27 +1048,31 @@ def phase_path_shapes(torch, dev, by_path):
     with its times beside its bound and the library yardstick."""
     from agentlib_mpc_torch.ops import kkt
 
-    checked = {"ldl_factor": {(B, M) for B, M, _ in CHECK_SHAPES}
-               | set(STAGE_FACTOR_SHAPES),
-               "ldl_solve": {(B, M) for B, M, _ in CHECK_SHAPES}
-               | set(STAGE_SOLVE_SHAPES)}
+    f32, f64 = torch.float32, torch.float64
+    checked = {"ldl_factor": {(B, M, f32) for B, M, _ in CHECK_SHAPES}
+               | {(B, M, f32) for B, M in STAGE_FACTOR_SHAPES},
+               "ldl_solve": {(B, M, f32) for B, M, _ in CHECK_SHAPES}
+               | {(B, M, f32) for B, M in STAGE_SOLVE_SHAPES}}
     before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
     rows = []
     for path, totals in by_path.items():
-        for name, shapes in totals.get("shapes", {}).items():
-            for B, M in shapes:
-                if (B, M) in checked[name]:
-                    continue
-                checked[name].add((B, M))
-                n = (M + 1) // 2 + 1
-                K_np, b_np = quasi_definite_batch(B, n, M - n, 300 + M)
-                K = torch.as_tensor(K_np, dtype=torch.float32, device=dev)
-                b = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
-                rows.append({"kernel": name, "path": path,
-                             **kernel_row(torch, name, K, b)})
+        for key, dtype in (("shapes", f32), ("shapes_f64", f64)):
+            for name, shapes in totals.get(key, {}).items():
+                for B, M in shapes:
+                    if (B, M, dtype) in checked[name]:
+                        continue
+                    checked[name].add((B, M, dtype))
+                    n = (M + 1) // 2 + 1
+                    K_np, b_np = quasi_definite_batch(B, n, M - n, 300 + M)
+                    K = torch.as_tensor(K_np, dtype=dtype, device=dev)
+                    b = torch.as_tensor(b_np, dtype=dtype, device=dev)
+                    rows.append({"kernel": name, "path": path,
+                                 **kernel_row(torch, name, K, b)})
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
     emit({"phase": "path_shapes",
-          "launched": {path: t.get("shapes") for path, t in by_path.items()},
+          "launched": {path: {"float32": t.get("shapes"),
+                              "float64": t.get("shapes_f64")}
+                       for path, t in by_path.items()},
           "checked_here": rows})
     return rows
 
@@ -1826,125 +1832,14 @@ def phase_fused_fleet(torch, dev, smi):
     return totals
 
 
-def one_room_configs(horizon: int = MODULE_N, solver: dict | None = None):
-    """tests/test_mas_one_room.py's two-agent MAS with the model named by
-    its zoo name: the MPC agent and the simulated room."""
-    mpc = {
-        "id": "myMPCAgent",
-        "modules": [
-            {"module_id": "Ag1Com", "type": "local_broadcast"},
-            {
-                "module_id": "myMPC",
-                "type": "mpc",
-                "optimization_backend": {
-                    "type": "jax",
-                    "model": {"class": "OneRoom"},
-                    "discretization_options": {
-                        "collocation_order": 2,
-                        "collocation_method": "legendre",
-                    },
-                    "solver": {"max_iter": 60, **(solver or {})},
-                },
-                "time_step": 300,
-                "prediction_horizon": horizon,
-                "parameters": [
-                    {"name": "s_T", "value": 0.001},
-                    {"name": "r_mDot", "value": 0.01},
-                ],
-                "inputs": [
-                    {"name": "T_in", "value": MODULE_T_IN},
-                    {"name": "load", "value": 150},
-                    {"name": "T_upper", "value": MODULE_UB},
-                ],
-                "controls": [{"name": "mDot", "value": 0.02, "ub": 0.05,
-                              "lb": 0}],
-                "outputs": [{"name": "T_out"}],
-                "states": [
-                    {"name": "T", "value": 298.16, "ub": 303.15,
-                     "lb": 288.15, "alias": "T", "source": "SimAgent"},
-                ],
-            },
-        ],
-    }
-    sim = {
-        "id": "SimAgent",
-        "modules": [
-            {"module_id": "Ag1Com", "type": "local_broadcast"},
-            {
-                "module_id": "room",
-                "type": "simulator",
-                "model": {"class": "OneRoom",
-                          "states": [{"name": "T", "value": 298.16}]},
-                "t_sample": MODULE_PLANT_DT,
-                "outputs": [{"name": "T_out", "value": 298, "alias": "T"}],
-                "inputs": [{"name": "mDot", "value": 0.02, "alias": "mDot"}],
-            },
-        ],
-    }
-    return [mpc, sim]
-
-
-def linear_qp_config(solver: dict | None = None) -> dict:
-    """examples/linear_qp_mpc.py's agent config (MPC and plant in one
-    agent)."""
-    t_upper, start = 295.15, 299.15
-    return {
-        "id": "LinearZone",
-        "modules": [
-            {"module_id": "com", "type": "local_broadcast"},
-            {
-                "module_id": "mpc",
-                "type": "mpc",
-                "optimization_backend": {
-                    "type": "jax",
-                    "model": {"class": "LinearRCZone"},
-                    "discretization_options": {"collocation_order": 2},
-                    "solver": {"max_iter": 60, "tol": 1e-4,
-                               **(solver or {})},
-                },
-                "time_step": 300.0,
-                "prediction_horizon": 8,
-                "inputs": [
-                    {"name": "load", "value": 150.0},
-                    {"name": "T_amb", "value": 303.15},
-                    {"name": "T_upper", "value": t_upper},
-                ],
-                "states": [
-                    {"name": "T", "value": start, "ub": 310.15,
-                     "lb": 288.15},
-                    {"name": "T_slack", "value": 0.0},
-                ],
-                "controls": [
-                    {"name": "Q", "value": 0.0, "ub": 500.0, "lb": 0.0},
-                ],
-                "parameters": [
-                    {"name": "C", "value": 100000.0},
-                    {"name": "R", "value": 0.05},
-                    {"name": "s_T", "value": 1.0},
-                    {"name": "r_Q", "value": 1e-3},
-                ],
-            },
-            {
-                "module_id": "sim",
-                "type": "simulator",
-                "model": {"class": "LinearRCZone",
-                          "states": [{"name": "T", "value": start}]},
-                "t_sample": 300.0,
-                "outputs": [{"name": "T_out", "value": start,
-                             "alias": "T"}],
-                "inputs": [{"name": "Q", "value": 0.0, "alias": "Q"}],
-            },
-        ],
-    }
-
-
 def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
-              count_launches: bool):
+              count_launches: bool, capture: bool = False):
     """Build a LocalMAS on ``dev`` in ``dtype`` and run it ``until``: per
     solve its wall ms, stats row, guard level and (on the card) kernel
     launches; the simulator's rows and its total wall time. Launch counts
-    are reset just before the run."""
-    import agentlib_mpc_torch.modules  # noqa: F401 - registers the types
+    are reset just before the run. With ``capture``, each solve's row also
+    keeps its inputs and the warm state it started from (on the host),
+    for :func:`replay_solves`."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.runtime.mas import LocalMAS
 
@@ -1958,11 +1853,17 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
         mpc.guard.assess
 
     def counted_solve(now, variables):
+        if capture:
+            start = (now, copy.deepcopy(variables),
+                     {k: v.detach().cpu() if torch.is_tensor(v) else v
+                      for k, v in mpc.backend.warm_state().items()})
         before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
         result = solve(now, variables)
         solves.append({"factor": kkt.ldl_factor.launches - before[0],
                        "solve": kkt.ldl_solve.launches - before[1],
                        "u0": dict(result["u0"])})
+        if capture:
+            solves[-1]["start"] = start
         return result
 
     def timed_sim_step(*args):
@@ -1993,21 +1894,34 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
             "sim_s": sim_s[0], "rows": [dict(r) for r in sim._rows]}
 
 
-def check_module_run(name, run, solves_per_factor, shape, failed_max=0):
-    """Every solve ran on the LDLᵀ path; the kernels launched only at
-    ``shape``, one factor and ``solves_per_factor`` solves per inner
-    iteration; the warm start was never reset. Every solve succeeded with the
-    guard at level 0, except at most ``failed_max`` failed solves, each
-    replayed or held by the guard (level 1 or 2: never actuated, never the
-    fallback)."""
-    failed = [k for k, row in enumerate(run["solves"]) if not row["success"]]
-    check(len(failed) <= failed_max,
-          f"{name}: {len(failed)} solves failed (at most {failed_max})")
+def replay_solves(torch, configs, mpc_at, run):
+    """Every solve of ``run`` (captured by :func:`drive_mas`) once more on
+    the CPU in float64 with the plain LDLᵀ, from the same inputs and warm
+    state: per solve the iterations and u0."""
+    from agentlib_mpc_torch.runtime.mas import LocalMAS
+
+    mas = LocalMAS(configs, env={"rt": False}, device="cpu",
+                   dtype=torch.float64)
+    backend = mas.agents[mpc_at[0]].get_module(mpc_at[1]).backend
+    out = []
+    for row in run["solves"]:
+        now, variables, warm = row["start"]
+        backend.set_warm_state(warm)
+        result = backend.solve(now, variables)
+        out.append({"iterations": int(result["stats"]["iterations"]),
+                    "u0": dict(result["u0"])})
+    return out
+
+
+def check_module_run(name, run, solves_per_factor, shape, dtype):
+    """Every solve succeeded, with the guard at level 0, on the LDLᵀ path;
+    the kernels launched only at ``shape`` and only in ``dtype``, one
+    factor and ``solves_per_factor`` solves per inner iteration; the warm
+    start was never reset."""
     for k, row in enumerate(run["solves"]):
-        level = row.get("guard_level")
-        check(level == 0 if row["success"] else level in (1, 2),
+        check(row["success"] and row.get("guard_level") == 0,
               f"{name} solve {k}: success {row['success']}, guard level "
-              f"{level}")
+              f"{row.get('guard_level')}")
         check(row["kkt_path"] == "ldl",
               f"{name} solve {k}: kkt_path {row['kkt_path']}")
         check(row["factor"] == row["iterations"]
@@ -2017,11 +1931,14 @@ def check_module_run(name, run, solves_per_factor, shape, failed_max=0):
               f"1/{solves_per_factor} per iteration)")
     check(run["mpc"].backend.warm_start_resets == 0,
           f"{name}: the warm start was reset")
+    totals = run["totals"]
+    want, other = (("shapes_f64", "shapes") if dtype == "float64"
+                   else ("shapes", "shapes_f64"))
     for kernel in ("ldl_factor", "ldl_solve"):
-        check(run["totals"]["shapes"][kernel] == [shape],
-              f"{name}: {kernel} launched at {run['totals']['shapes'][kernel]}"
-              f", expected only {shape}")
-    return failed
+        check(totals[want][kernel] == [shape] and not totals[other][kernel],
+              f"{name}: {kernel} launched at {totals[want][kernel]} "
+              f"({dtype}) and {totals[other][kernel]} (other), expected only "
+              f"{shape} in {dtype}")
 
 
 def module_summary(run) -> dict:
@@ -2040,9 +1957,11 @@ def one_room_metrics(rows):
     (examples/one_room_mpc.py) over the simulator's rows."""
     temps = np.array([r["T_out"] for r in rows])
     mdot = np.array([r["mDot"] for r in rows])
-    dt_h = MODULE_PLANT_DT / 3600.0
-    return (float(np.sum(np.abs(temps - MODULE_UB)) * dt_h),
-            float(np.sum(mdot * (temps - MODULE_T_IN)) * dt_h))
+    from agentlib_mpc_torch import reference_configs as rc
+
+    dt_h = rc.ONE_ROOM_PLANT_DT / 3600.0
+    return (float(np.sum(np.abs(temps - rc.ONE_ROOM_UB)) * dt_h),
+            float(np.sum(mdot * (temps - rc.ONE_ROOM_T_IN)) * dt_h))
 
 
 def profile_module_solve(torch, run, name):
@@ -2059,6 +1978,8 @@ def profile_module_solve(torch, run, name):
 def phase_module_one_room(torch, dev, smi):
     """The two-agent one-room MAS through LocalMAS on the card in f32,
     held against the same MAS in f64 on the CPU with the plain LDLᵀ."""
+    from agentlib_mpc_torch.reference_configs import one_room_configs
+
     run = drive_mas(torch, one_room_configs(), dev, torch.float32,
                     MODULE_UNTIL, ("myMPCAgent", "myMPC"),
                     ("SimAgent", "room"), count_launches=True)
@@ -2080,7 +2001,7 @@ def phase_module_one_room(torch, dev, smi):
     mdot64 = np.array([r["mDot"] for r in ref["rows"]])
     temps = [r["T_out"] for r in run["rows"]]
     record = {"phase": "module_one_room", "dtype": "float32", "kkt_size": M,
-              "horizon": MODULE_N, "until_s": MODULE_UNTIL,
+              "horizon": backend.N, "until_s": MODULE_UNTIL,
               **module_summary(run), "launches": run["totals"],
               "solves_per_factor": per_factor,
               "final_room_temperature_K": temps[-1],
@@ -2098,7 +2019,7 @@ def phase_module_one_room(torch, dev, smi):
               "warm_start_resets": backend.warm_start_resets,
               "nvidia_smi": smi}
     emit(record)
-    check_module_run("module_one_room", run, per_factor, (1, M))
+    check_module_run("module_one_room", run, per_factor, (1, M), "float32")
     check(np.isfinite(temps).all() and temps[-1] < temps[0],
           "module_one_room: the room did not cool")
     check(record["aie_rel_diff"] <= MODULE_METRIC_RTOL
@@ -2111,66 +2032,64 @@ def phase_module_one_room(torch, dev, smi):
 
 def phase_module_linear_qp(torch, dev, smi):
     """examples/linear_qp_mpc.py's agent through LocalMAS on the card in
-    f32 on the QP fast path, held against the same run in f64 on the CPU
-    with the plain LDLᵀ."""
-    run = drive_mas(torch, [linear_qp_config()], dev, torch.float32,
+    f64 on the QP fast path (the float64 kernels), held against the same
+    run in f64 on the CPU with the plain LDLᵀ."""
+    from agentlib_mpc_torch.reference_configs import linear_qp_config
+
+    run = drive_mas(torch, [linear_qp_config()], dev, torch.float64,
                     MODULE_UNTIL, ("LinearZone", "mpc"), ("LinearZone", "sim"),
-                    count_launches=True)
+                    count_launches=True, capture=True)
     backend = run["mpc"].backend
     check(backend.uses_qp_fast_path is True,
           "module_linear_qp: LinearRCZone did not route to the QP fast path")
     M = backend.ocp.n_w + backend.ocp.n_g
-    # one factor and two re-solves (predictor, corrector) of one solve and
-    # two refinement steps each per QP iteration
-    failed = [k for k, row in enumerate(run["solves"])
-              if not row["success"]]
     ref = drive_mas(torch, [linear_qp_config({"kkt_method": "ldl"})], "cpu",
                     torch.float64, MODULE_UNTIL, ("LinearZone", "mpc"),
                     ("LinearZone", "sim"), count_launches=False)
-    check(all(r["success"] for r in ref["solves"]),
-          "module_linear_qp: the f64 CPU reference failed a solve")
+    replay = replay_solves(torch, [linear_qp_config({"kkt_method": "ldl"})],
+                           ("LinearZone", "mpc"), run)
     u0 = np.array([row["u0"]["Q"] for row in run["solves"]])
     u0_64 = np.array([row["u0"]["Q"] for row in ref["solves"]])
+    u0_replay = np.array([row["u0"]["Q"] for row in replay])
     check(len(u0) == len(u0_64), "module_linear_qp: solve counts differ")
-    gap = np.abs(u0 - u0_64)
-    # the solves before the first failure (of either loop) see the same
-    # plant in both
-    same = min(failed + [len(u0)])
+    gap, replay_gap = np.abs(u0 - u0_64), np.abs(u0 - u0_replay)
+    replay_iterations_differ = [
+        k for k, (a, b) in enumerate(zip(run["solves"], replay))
+        if a["iterations"] != b["iterations"]]
     t_final = run["rows"][-1]["T_out"]
-    emit({"phase": "module_linear_qp", "dtype": "float32", "kkt_size": M,
+    emit({"phase": "module_linear_qp", "dtype": "float64", "kkt_size": M,
           "horizon": backend.N, "until_s": MODULE_UNTIL,
           "qp_fast_path": backend.uses_qp_fast_path,
           **module_summary(run), "launches": run["totals"],
           "final_plant_temperature_K": t_final,
-          "t_final_limit_K": LINEAR_QP_F32_T_LIMIT,
-          "t_final_limit_f64_K": LINEAR_QP_T_LIMIT,
-          "failed_solves": failed,
-          "failed_solves_max": LINEAR_QP_F32_FAILED_MAX,
-          "failed_solve_iterations": [run["solves"][k]["iterations"]
-                                      for k in failed],
-          "u0_W": u0.tolist(), "u0_f64_cpu_W": u0_64.tolist(),
-          "u0_max_abs_diff_f64_W_before_first_failure":
-              float(gap[:same].max()) if same else None,
-          "solves_before_first_failure": same,
-          "u0_tol_W": LINEAR_QP_U0_TOL_W,
-          "u0_max_abs_diff_f64_W_all": float(gap.max()),
+          "t_final_limit_K": LINEAR_QP_T_LIMIT,
+          "u0_W": u0.tolist(),
+          "u0_replay_max_abs_diff_W": float(replay_gap.max()),
+          "u0_replay_tol_W": LINEAR_QP_U0_TOL_W,
+          "replay_iterations_differ": replay_iterations_differ,
+          "u0_closed_loop_f64_cpu_W": u0_64.tolist(),
+          "u0_closed_loop_max_abs_diff_W": float(gap.max()),
+          "iterations_per_solve_f64_cpu": [r["iterations"]
+                                           for r in ref["solves"]],
           "f64_cpu_final_plant_temperature_K": ref["rows"][-1]["T_out"],
           "f64_cpu_run_seconds": ref["wall_s"],
+          "f64_cpu_all_success": all(r["success"] for r in ref["solves"]),
           "guard_level_max": max(r.get("guard_level", -1)
                                  for r in run["solves"]),
-          "guard_level_final": run["mpc"].guard.level,
           "warm_start_resets": backend.warm_start_resets,
           "nvidia_smi": smi})
-    check_module_run("module_linear_qp", run, 6, (1, M),
-                     failed_max=LINEAR_QP_F32_FAILED_MAX)
-    check(ref["rows"][-1]["T_out"] <= LINEAR_QP_T_LIMIT,
-          f"module_linear_qp: the f64 CPU loop's plant at "
-          f"{ref['rows'][-1]['T_out']} K")
-    check(t_final <= LINEAR_QP_F32_T_LIMIT,
+    # one factor and two re-solves (predictor, corrector) of one solve and
+    # two refinement steps each per QP iteration
+    check_module_run("module_linear_qp", run, 6, (1, M), "float64")
+    check(all(r["success"] for r in ref["solves"]),
+          "module_linear_qp: the f64 CPU reference failed a solve")
+    check(t_final <= LINEAR_QP_T_LIMIT,
           f"module_linear_qp: plant at {t_final} K")
-    check(same > 0 and float(gap[:same].max()) <= LINEAR_QP_U0_TOL_W,
-          f"module_linear_qp: u0 differs from f64 by {gap[:same].max()} W "
-          f"before the first failed solve")
+    check(not replay_iterations_differ
+          and float(replay_gap.max()) <= LINEAR_QP_U0_TOL_W,
+          f"module_linear_qp: the CPU's replay of the card's solves differs "
+          f"by {replay_gap.max()} W in u0, iterations at "
+          f"{replay_iterations_differ}")
     profile_module_solve(torch, run, "module_linear_qp_profile")
     return run["totals"]
 

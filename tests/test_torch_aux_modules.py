@@ -1,7 +1,9 @@
 """The aux modules through both packages, on the cases of
 ``tests/test_aux_modules.py``: time utils, PID, the set-point generator,
 the input predictor and the ``skip_mpc_intervals``/``fallback_pid``
-hand-over MAS at that test's size (N=6 multiple shooting, 4 500 s), plus
+hand-over MAS at that test's size (N=6 multiple shooting) for 3 300 s
+(that test runs 4 500 s; the skipped interval and the resumption lie
+within the first 3 300), plus
 ``data_source`` and ``mpc_on_off`` on the cases their docstrings state.
 Same inputs, same outputs: floats within 1e-8 relative (float64 on the
 CPU), everything else equal."""
@@ -219,7 +221,10 @@ def make_one_room_fast(pkg):
 
 
 def handover_configs(model_cls):
-    """tests/test_aux_modules.py's hand-over MAS (with the plain LDLᵀ)."""
+    """tests/test_aux_modules.py's hand-over MAS (with the plain LDLᵀ, and
+    without QP routing: the nonlinear room never takes the QP path, and
+    "auto" would spend the JAX package's sampled LQ probe on proving
+    it)."""
     mpc_agent = {
         "id": "Controller",
         "modules": [
@@ -230,7 +235,8 @@ def handover_configs(model_cls):
                  "type": "jax",
                  "model": {"class": model_cls},
                  "discretization_options": {"method": "multiple_shooting"},
-                 "solver": {"max_iter": 40, "kkt_method": "ldl"}},
+                 "solver": {"max_iter": 40, "kkt_method": "ldl",
+                        "qp_fast_path": "off"}},
              "time_step": 300, "prediction_horizon": 6,
              "inputs": [{"name": "T_in"}, {"name": "load"},
                         {"name": "T_upper"}],
@@ -272,7 +278,7 @@ def test_handover_mas_matches():
         mas = mod(pkg, "runtime.mas").LocalMAS(
             handover_configs(make_one_room_fast(pkg)), env={"rt": False},
             **kw)
-        mas.run(until=4500)
+        mas.run(until=3600)
         mpc = mas.agents["Controller"].get_module("mpc")
         runs[pkg] = {
             "solves": [(r["time"], r["iterations"], r["success"])

@@ -18,6 +18,7 @@ import torch
 
 from agentlib_mpc_tpu.ops import kkt as jkkt
 from agentlib_mpc_torch.ops import kkt
+from agentlib_mpc_torch.ops import solver as tsolver
 
 
 def _quasi_definite_batch(B, n, m, seed=0):
@@ -232,6 +233,55 @@ def test_ldl_fits_boundary(monkeypatch):
     assert not kkt.ldl_fits(92, "cpu")
 
 
+def test_float64_routing_takes_the_float64_kernels(monkeypatch):
+    """A float64 system routes "auto" to the kernels only where they fit in
+    float64 (twice float32's shared memory: M <= 236 with Hopper's opt-in),
+    since they factor float64 in float64; float16/bfloat16 run the float32
+    kernels; the CPU never routes to them."""
+    monkeypatch.setattr(kkt, "_smem_optin", lambda device: 232448)
+    f64 = torch.float64
+    assert kkt.factor_smem_bytes(74, 8) == 2 * kkt.factor_smem_bytes(74)
+    assert kkt.solve_smem_bytes(74, 8) == 2 * kkt.solve_smem_bytes(74)
+    assert kkt.kernel_dtype(f64) == f64
+    assert kkt.kernel_dtype(torch.float16) == torch.float32
+    assert kkt.kernel_dtype(torch.bfloat16) == torch.float32
+    assert kkt.ldl_fits(236, "cuda", f64)
+    assert not kkt.ldl_fits(237, "cuda", f64)
+    assert kkt.ldl_fits(240, "cuda", torch.float32)
+    assert kkt.resolve_kkt_method("auto", 74, "cuda", dtype=f64) == "ldl"
+    assert kkt.resolve_kkt_method("auto", 240, "cuda", dtype=f64) == "lu"
+    assert kkt.resolve_kkt_method("auto", 74, "cpu", dtype=f64) == "lu"
+    assert tsolver._resolve_paths(tsolver.SolverOptions(), 137, "cuda",
+                                  f64)[1] == "ldl"
+    assert tsolver._resolve_paths(tsolver.SolverOptions(), 238, "cuda",
+                                  f64)[1] == "lu"
+
+
+def test_float64_entry_points_named_per_type(monkeypatch):
+    """A float64 launch resolves the _f64 entry point of the same library,
+    cached apart from the float32 one."""
+    loads = []
+
+    class _Lib:
+        def __init__(self, name):
+            base = kkt._SIGNATURES[name][0][:-len("_f32")]
+            for suffix in ("_f32", "_f64"):
+                setattr(self, base + suffix,
+                        type("Fn", (), {"__call__": lambda *a: 0})())
+
+    def fake_load(name):
+        loads.append(name)
+        return _Lib(name)
+
+    monkeypatch.setattr(kkt.cuda_build, "load", fake_load)
+    monkeypatch.setattr(kkt, "_ENTRIES", {})
+    f32 = kkt._entry("ldl_solve")
+    f64 = kkt._entry("ldl_solve", torch.float64)
+    assert f32 is not f64
+    assert f64 is kkt._entry("ldl_solve", torch.float64)
+    assert loads == ["ldl_solve", "ldl_solve"]
+
+
 def test_entry_points_resolved_once(monkeypatch):
     """Each kernel's C entry point is looked up, and its argtypes set, on
     first use only; later launches reuse it."""
@@ -298,9 +348,30 @@ def test_cuda_kernels_match_plain(cuda_device, B, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m", [(1, 49, 25), (1, 91, 46), (3, 5, 2)],
+                         ids=["linear-qp-1x74", "one-room-1x137", "3x7"])
+def test_cuda_float64_kernels_match_plain(cuda_device, B, n, m):
+    """The float64 kernels against the plain versions on the card, same f64
+    inputs: bitwise, as in float32, and counted as float64 launches."""
+    K, rhs = _quasi_definite_batch(B, n, m, seed=B + n)
+    Kc = torch.as_tensor(K, dtype=torch.float64, device=cuda_device)
+    bc = torch.as_tensor(rhs, dtype=torch.float64, device=cuda_device)
+    kkt.reset_launch_counts()
+    LD = kkt.ldl_factor(Kc)
+    x = kkt.ldl_solve(LD, bc)
+    assert LD.dtype == x.dtype == torch.float64
+    assert kkt.ldl_factor.shapes_f64 == kkt.ldl_solve.shapes_f64 == \
+        {(B, n + m)}
+    assert not kkt.ldl_factor.shapes and not kkt.ldl_solve.shapes
+    LD_plain = kkt.ldl_factor_plain(Kc)
+    assert float((LD - LD_plain).abs().max()) == 0.0
+    assert float((x - kkt.ldl_solve_plain(LD_plain, bc)).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_check_inputs(cuda_device):
-    """f64 inputs are cast to f32 and back; non-float and mismatched inputs
-    raise instead of launching."""
+    """f64 inputs run the float64 kernels and come back f64; non-float and
+    mismatched inputs raise instead of launching."""
     K, rhs = _quasi_definite_batch(2, 5, 2, seed=5)
     Kc = torch.as_tensor(K, device=cuda_device)
     LD = kkt.ldl_factor(Kc)

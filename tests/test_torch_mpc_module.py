@@ -6,20 +6,28 @@ backend, the ``simulator`` plant, the actuation guard and the
 models named by their zoo names, ``kkt_method="ldl"``: the plain LDLᵀ
 versions in both) and run in closed loop:
 
-* the two-agent one-room MAS of ``tests/test_mas_one_room.py`` at N=6 for
-  1 800 s: per-step trajectories (u0 among them) within 1e-8 relative,
-  equal iteration counts, the simulator's rows within 1e-8;
-* the linear-QP agent of ``examples/linear_qp_mpc.py``: the same routing
-  verdict (the QP fast path) and u0 within 1e-8;
-* a scripted failure window (``backend.solve`` reports ``success=False``
-  on solves 3–6) through the guard of ``tests/test_resilience.py``'s
-  controller: identical guard decisions, flag flips and FallbackPID
-  hand-over times;
+* the two-agent one-room MAS of ``tests/test_mas_one_room.py`` at N=6,
+  guarded as ``tests/test_resilience.py``'s controller (guard budget,
+  ``fallback_pid``, the plant every 50 s), for 2 100 s with a scripted
+  failure window (``backend.solve`` reports ``success=False`` on solves
+  3–6), one run per package shared by the tests below: per-step
+  trajectories (u0 among them) within 1e-8 relative, equal iteration
+  counts, the simulator's rows within 1e-8, identical guard decisions,
+  flag flips and FallbackPID hand-over times;
+* the linear-QP agent of ``examples/linear_qp_mpc.py`` at N=3 for 900 s:
+  the port's certificate routes it to the QP fast path (the JAX
+  package's routing of this model is held by ``tests/test_qp.py``; here
+  it is forced, which skips its 19 s sampled probe), and u0 within 1e-8;
 * the port alone: a checkpointed controller resumes bitwise, a JAX warm
   state carried over by ``warm_state_from_jax`` gives the JAX package's
   next solve, every type of a later slice raises ``NotImplementedError``
   naming its ROADMAP item, and the closed loop in float32 keeps the
-  float64 loop's comfort error (AIE) and cooling energy within 1 %.
+  float64 loop's comfort error (AIE) and cooling energy within 1 % over
+  the first 900 s of the guarded loop.
+
+The one-room configs set ``qp_fast_path`` "off" in both packages: the
+nonlinear model never takes the QP path, and "auto" would spend the JAX
+package's sampled LQ probe on proving it.
 """
 
 import copy
@@ -29,9 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-import agentlib_mpc_torch.modules  # noqa: F401 - registers module types
 import agentlib_mpc_tpu.modules  # noqa: F401 - registers module types
+from agentlib_mpc_torch import reference_configs
 from agentlib_mpc_torch.backends.backend import (
     DEFERRED_BACKEND_TYPES,
     create_backend,
@@ -45,27 +52,35 @@ F64 = torch.float64
 RTOL = 1e-8
 UB = 295.15
 N = 6
-UNTIL = 1800.0
+#: the guarded one-room loop: its length, the plant's step, and the solves
+#: (numbered from 1) that report failure
+UNTIL, PLANT_DT, FAILED_SOLVES = 2100.0, 50, (3, 4, 5, 6)
+#: the linear-QP parity's horizon and length, and the float32 loop's
+LINEAR_QP_N, SHORT_UNTIL = 3, 900.0
 #: float32 against float64 closed loop, relative (the JAX package's f32
 #: and f64 one-room loops agree to 0.4 %, BASELINE.md)
 F32_METRIC_RTOL = 0.01
 
 
 def one_room_configs(horizon=N):
-    """The MAS of tests/test_mas_one_room.py (chip_smoke's, the model named
-    by its zoo name) with the plain LDLᵀ."""
-    return chip_smoke.one_room_configs(horizon, {"kkt_method": "ldl"})
+    """The MAS of tests/test_mas_one_room.py (the model named by its zoo
+    name) with the plain LDLᵀ and no QP routing."""
+    return reference_configs.one_room_configs(
+        horizon, {"kkt_method": "ldl", "qp_fast_path": "off"})
 
 
-def linear_qp_config():
-    """examples/linear_qp_mpc.py's agent with the plain LDLᵀ."""
-    return chip_smoke.linear_qp_config({"kkt_method": "ldl"})
+def linear_qp_config(qp_fast_path="auto"):
+    """examples/linear_qp_mpc.py's agent with the plain LDLᵀ at N=3."""
+    cfg = reference_configs.linear_qp_config(
+        {"kkt_method": "ldl", "qp_fast_path": qp_fast_path})
+    cfg["modules"][1]["prediction_horizon"] = LINEAR_QP_N
+    return cfg
 
 
 def test_configs_are_the_tests_and_the_examples():
-    """chip_smoke's module-path configs are tests/test_mas_one_room.py's
-    MAS and examples/linear_qp_mpc.py's agent, model classes named by
-    their zoo names."""
+    """The port's reference configs are tests/test_mas_one_room.py's MAS
+    and examples/linear_qp_mpc.py's agent, model classes named by their
+    zoo names."""
     import test_mas_one_room as ref
     from examples.linear_qp_mpc import agent_config
 
@@ -74,8 +89,8 @@ def test_configs_are_the_tests_and_the_examples():
                    sim["modules"][1]):
         assert module["model"]["class"].__name__ == "OneRoom"
         module["model"]["class"] = "OneRoom"
-    assert chip_smoke.one_room_configs() == [mpc, sim]
-    assert chip_smoke.linear_qp_config() == agent_config()
+    assert reference_configs.one_room_configs() == [mpc, sim]
+    assert reference_configs.linear_qp_config() == agent_config()
 
 
 def guarded_configs():
@@ -89,7 +104,7 @@ def guarded_configs():
     mpc["resilience"] = {"replay_steps": 1, "hold_steps": 1,
                          "recovery_steps": 2}
     mpc["states"][0]["source"] = "plant"
-    plant["modules"][1]["t_sample"] = 50
+    plant["modules"][1]["t_sample"] = PLANT_DT
     plant["modules"][1]["outputs"][0]["value"] = 298.16
     ctrl["modules"].append({
         "module_id": "pid", "type": "fallback_pid",
@@ -164,45 +179,6 @@ def closed_loop_metrics(sim_rows, dt):
             float(np.sum(mdot * (temps - 290.15)) * dt / 3600.0))
 
 
-@pytest.fixture(scope="module")
-def one_room():
-    cfgs = one_room_configs()
-    port = run_port(cfgs, UNTIL)
-    ref = run_jax(cfgs, UNTIL)
-    return {"port_mas": port, "jax_mas": ref,
-            "port": trace(port, "myMPCAgent", "myMPC", "SimAgent", "room"),
-            "jax": trace(ref, "myMPCAgent", "myMPC", "SimAgent", "room")}
-
-
-def test_one_room_matches_jax_step_by_step(one_room):
-    assert_loops_match(one_room["port"], one_room["jax"])
-    assert all(r["success"] for r in one_room["port"]["solves"])
-    assert all(r["kkt_path"] == "ldl" for r in one_room["port"]["solves"])
-    # the loop is closed: the room cools, the actuation moves
-    rows = one_room["port"]["sim_rows"]
-    assert rows[-1]["T_out"] < rows[0]["T_out"]
-    assert np.std([r["mDot"] for r in rows]) > 0
-
-
-def test_linear_qp_agent_matches_jax():
-    """u0, iterations and the plant within 1e-8 at every step. The tail of
-    the predicted trajectory is compared by nothing: the LQ optimum is
-    flat there (r_Q = 1e-3 against the comfort slack), and the warm start
-    carries each solve's round-off into the next, so the two packages'
-    last predicted controls part by 4e-10 W in the first solve and by
-    5e-4 W in the seventh, while u0 stays within 2e-7 W of 500 W."""
-    cfg = [linear_qp_config()]
-    port = run_port(cfg, UNTIL)
-    ref = run_jax(cfg, UNTIL)
-    pm = port.agents["LinearZone"].get_module("mpc")
-    jm = ref.agents["LinearZone"].get_module("mpc")
-    assert pm.backend.uses_qp_fast_path is True
-    assert jm.backend.uses_qp_fast_path is True
-    assert_loops_match(trace(port, "LinearZone", "mpc", "LinearZone", "sim"),
-                       trace(ref, "LinearZone", "mpc", "LinearZone", "sim"),
-                       whole_trajectories=False)
-
-
 def _register_listener(register_module, base):
     @register_module("_test_guard_listener")
     class Listener(base):
@@ -220,11 +196,15 @@ def _register_listener(register_module, base):
                                             v.source.module_id)))
 
 
-def _failure_window_run(mas_cls, calls=(3, 4, 5, 6), until=2100.0):
+def _failure_window_run(mas_cls, until, dtype=F64, calls=FAILED_SOLVES):
+    """The guarded controller and its plant for ``until`` seconds, with
+    ``backend.solve`` reporting ``success=False`` on the solves numbered
+    ``calls`` (from 1); the guard's decisions, the flag flips and every
+    mDot command are recorded."""
     cfgs = guarded_configs()
     cfgs[0]["modules"].append({"module_id": "listen",
                                "type": "_test_guard_listener"})
-    kwargs = ({"device": "cpu", "dtype": F64} if mas_cls is LocalMAS
+    kwargs = ({"device": "cpu", "dtype": dtype} if mas_cls is LocalMAS
               else {})
     mas = mas_cls(cfgs, env={"rt": False}, **kwargs)
     module = mas.agents["ctrl"].get_module("mpc")
@@ -250,11 +230,15 @@ def _failure_window_run(mas_cls, calls=(3, 4, 5, 6), until=2100.0):
     module.guard.assess = recorded_assess
     mas.run(until=until)
     listen = mas.agents["ctrl"].get_module("listen")
-    return {"decisions": decisions, "flags": listen.flags,
-            "mdot": listen.mdot, "level": module.guard.level}
+    return {"mas": mas, "decisions": decisions, "flags": listen.flags,
+            "mdot": listen.mdot, "level": module.guard.level,
+            **trace(mas, "ctrl", "mpc", "plant", "room")}
 
 
-def test_guard_failure_window_matches_jax():
+@pytest.fixture(scope="module")
+def one_room():
+    """The guarded one-room loop in both packages, once for every test that
+    reads it."""
     from agentlib_mpc_torch.runtime.module import BaseModule
     from agentlib_mpc_torch.runtime.module import register_module
     from agentlib_mpc_tpu.runtime.module import BaseModule as JBaseModule
@@ -264,8 +248,41 @@ def test_guard_failure_window_matches_jax():
 
     _register_listener(register_module, BaseModule)
     _register_listener(jregister_module, JBaseModule)
-    port = _failure_window_run(LocalMAS)
-    ref = _failure_window_run(JLocalMAS)
+    return {"port": _failure_window_run(LocalMAS, UNTIL),
+            "jax": _failure_window_run(JLocalMAS, UNTIL)}
+
+
+def test_one_room_matches_jax_step_by_step(one_room):
+    assert_loops_match(one_room["port"], one_room["jax"])
+    assert all(r["success"] for r in one_room["port"]["solves"])
+    assert all(r["kkt_path"] == "ldl" for r in one_room["port"]["solves"])
+    # the loop is closed: the room cools, the actuation moves
+    rows = one_room["port"]["sim_rows"]
+    assert rows[-1]["T_out"] < rows[0]["T_out"]
+    assert np.std([r["mDot"] for r in rows]) > 0
+
+
+def test_linear_qp_agent_matches_jax():
+    """The port's certificate routes the agent to the QP fast path; u0,
+    iterations and the plant within 1e-8 at every step. The tail of the
+    predicted trajectory is compared by nothing: the LQ optimum is flat
+    there (r_Q = 1e-3 against the comfort slack), and the warm start
+    carries each solve's round-off into the next, so the two packages'
+    last predicted controls part by watts-scale 1e-4 within a few solves,
+    while u0 stays at 500 W within 2e-7 W."""
+    port = run_port([linear_qp_config()], SHORT_UNTIL)
+    ref = run_jax([linear_qp_config("on")], SHORT_UNTIL)
+    pm = port.agents["LinearZone"].get_module("mpc")
+    jm = ref.agents["LinearZone"].get_module("mpc")
+    assert pm.backend.uses_qp_fast_path is True
+    assert jm.backend.uses_qp_fast_path is True
+    assert_loops_match(trace(port, "LinearZone", "mpc", "LinearZone", "sim"),
+                       trace(ref, "LinearZone", "mpc", "LinearZone", "sim"),
+                       whole_trajectories=False)
+
+
+def test_guard_failure_window_matches_jax(one_room):
+    port, ref = one_room["port"], one_room["jax"]
     # solve 3 (t=600) replays, 4 holds, 5 hands over to the FallbackPID
     # (t=1200), 6 stays there; healthy probes at 1800 and 2100 re-engage
     assert [d[1] for d in port["decisions"]] == [
@@ -287,10 +304,10 @@ def test_checkpointed_controller_resumes_bitwise(one_room, tmp_path):
     module = one_room["port"]["module"]
     path = str(tmp_path / "ctrl")
     module.save_checkpoint(path)
-    cfgs = one_room_configs()
+    cfgs = guarded_configs()
     cfgs[0]["modules"][1]["checkpoint_path"] = path
     fresh = LocalMAS(cfgs, env={"rt": False}, device="cpu", dtype=F64)
-    resumed = fresh.agents["myMPCAgent"].get_module("myMPC")
+    resumed = fresh.agents["ctrl"].get_module("mpc")
     for key, value in module.backend.warm_state().items():
         restored = resumed.backend.warm_state()[key]
         if isinstance(value, torch.Tensor):
@@ -308,8 +325,8 @@ def test_checkpointed_controller_resumes_bitwise(one_room, tmp_path):
 
 
 def test_warm_state_from_jax_gives_the_same_next_solve(one_room):
-    jm = one_room["jax_mas"].agents["myMPCAgent"].get_module("myMPC")
-    pm = one_room["port_mas"].agents["myMPCAgent"].get_module("myMPC")
+    jm = one_room["jax"]["module"]
+    pm = one_room["port"]["module"]
     warm = {k: (v if k == "cold" else np.asarray(v))
             for k, v in jm.backend.warm_state().items()}
     pm.backend.set_warm_state(warm_state_from_jax(warm, "cpu", F64))
@@ -362,11 +379,15 @@ def test_deferred_backend_features_name_their_item(one_room):
 
 
 def test_float32_loop_keeps_the_float64_metrics(one_room):
-    f32 = run_port(one_room_configs(), UNTIL, dtype=torch.float32)
-    rows32 = f32.agents["SimAgent"].get_module("room")._rows
-    aie32, energy32 = closed_loop_metrics(rows32, 10.0)
-    aie64, energy64 = closed_loop_metrics(one_room["port"]["sim_rows"], 10.0)
-    stats = f32.agents["myMPCAgent"].get_module("myMPC").backend
+    f32 = _failure_window_run(LocalMAS, SHORT_UNTIL, dtype=torch.float32)
+    rows32 = f32["sim_rows"]
+    rows64 = one_room["port"]["sim_rows"][:len(rows32)]
+    assert [r["time"] for r in rows64] == [r["time"] for r in rows32]
+    assert [d[1] for d in f32["decisions"]] == \
+        [d[1] for d in one_room["port"]["decisions"]][:len(f32["decisions"])]
+    aie32, energy32 = closed_loop_metrics(rows32, PLANT_DT)
+    aie64, energy64 = closed_loop_metrics(rows64, PLANT_DT)
+    stats = f32["module"].backend
     assert all(r["success"] for r in stats.stats_history)
     assert stats.warm_start_resets == 0
     assert abs(aie32 - aie64) <= F32_METRIC_RTOL * aie64
@@ -382,7 +403,7 @@ def test_module_path_on_the_card():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     from agentlib_mpc_torch.ops import kkt
 
-    mas = LocalMAS(chip_smoke.one_room_configs(), env={"rt": False})
+    mas = LocalMAS(reference_configs.one_room_configs(), env={"rt": False})
     module = mas.agents["myMPCAgent"].get_module("myMPC")
     kkt.reset_launch_counts()
     mas.run(until=900.0)
