@@ -13,11 +13,12 @@ its dense, stage-sweep and stage-sparse paths, the Mehrotra QP fast path,
 the certifiers that route both fast paths (``lint/fx``), the consensus
 and exchange updates, the fleet engine ``FusedADMM`` with its config entry
 point ``FusedFleet`` (``parallel/``), the module path (``LocalMAS`` with
-the ``mpc`` module on the ``jax`` backend, the simulator, the PIDs and the
-actuation guard, over the JAX package's agent configs), and the two
-hand-written Hopper
-kernels of ``ops/kkt.py`` (the pivot-free LDLᵀ factor and solve,
-``csrc/``).
+the ``mpc`` module on the ``jax`` backend, moving-horizon estimation,
+mixed-integer MPC with its CIA and branch-and-bound schedules, the
+simulator, the PIDs and the actuation guard, over the JAX package's agent
+configs), the two hand-written Hopper kernels of ``ops/kkt.py`` (the
+pivot-free LDLᵀ factor and solve, ``csrc/*.cu``) and the host C++ of the
+CIA branch-and-bound (``csrc/cia.cpp``, built by ``native.py``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``utils.device.resolve_device``).

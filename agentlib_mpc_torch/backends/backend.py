@@ -45,9 +45,6 @@ backend_types: dict[str, Type["OptimizationBackend"]] = {}
 DEFERRED_BACKEND_TYPES: dict[str, str] = {
     **dict.fromkeys(("jax_admm", "casadi_admm"),
                     "2b (ADMM on the module path)"),
-    **dict.fromkeys(("jax_mhe", "casadi_mhe"), "2c (MHE)"),
-    **dict.fromkeys(("jax_minlp", "casadi_minlp", "jax_cia", "casadi_cia",
-                     "jax_minlp_bb"), "2d (MINLP)"),
     **dict.fromkeys(("jax_ml", "casadi_ml", "casadi_nn", "jax_admm_ml",
                      "casadi_admm_ml"), "3 (ML)"),
 }

@@ -119,9 +119,8 @@ class JAXBackend(OptimizationBackend):
                            time_step: float, prediction_horizon: int) -> None:
         if var_ref.binary_controls:
             raise NotImplementedError(
-                "this backend ignores binary_controls; mixed-integer "
-                "problems need the MINLP backend, which is not ported yet "
-                "(ROADMAP Queue 1 item 2d)")
+                "this backend ignores binary_controls; use the MINLP "
+                "backend (type 'jax_minlp') for mixed-integer problems")
         self.var_ref = var_ref
         self.time_step = float(time_step)
         self.N = int(prediction_horizon)

@@ -17,8 +17,8 @@ reference's MultiIndex CSV layout (``discretization.py:398-484``), with a
 separate per-solve stats table (``casadi_backend.py:295-307``); both
 frames need pandas, imported where they are built. The backend runs on the
 agent's device in its dtype; checkpoints use the port's own format
-(``utils/checkpoint.py``). The mixed-integer ``minlp_mpc`` comes with
-ROADMAP Queue 1 item 2d.
+(``utils/checkpoint.py``). :class:`MINLPMPC` (``minlp_mpc``) adds the
+binary controls of the mixed-integer backends.
 """
 
 from __future__ import annotations
@@ -373,3 +373,40 @@ class MPC(BaseMPC):
     """Alias of the full MPC (the reference's ``mpc`` type adds NARX lag
     history on top of BaseMPC; in the JAX package lag collection lives in
     the ML backend, which comes with ROADMAP Queue 1 item 3)."""
+
+
+@register_module("minlp_mpc")
+class MINLPMPC(BaseMPC):
+    """Mixed-integer MPC: adds the ``binary_controls`` variable group and
+    actuates the scheduled binaries alongside the continuous controls
+    (reference ``modules/mpc/minlp_mpc.py:17-86``). Requires a MINLP-family
+    backend (``jax_minlp`` / ``jax_cia`` / ``jax_minlp_bb``)."""
+
+    def _assert_config_matches_model(self, model) -> None:
+        super()._assert_config_matches_model(model)
+        errors = []
+        for name in self.var_ref.binary_controls:
+            if name not in model.input_names:
+                errors.append(f"binary control {name!r} is not a model input")
+            else:
+                var = model.get_var(name)
+                if not (var.lb >= 0.0 and var.ub <= 1.0):
+                    errors.append(
+                        f"binary control {name!r} must be bounded in [0, 1]")
+        if not self.var_ref.binary_controls:
+            errors.append("minlp_mpc requires a non-empty binary_controls "
+                          "group")
+        if errors:
+            raise ValueError(
+                f"MINLP MPC config does not match model: {'; '.join(errors)}")
+
+    def set_actuation(self, result: dict) -> None:
+        """Continuous controls clip to bounds; binaries actuate exactly
+        (reference ``MINLPMPC.set_actuation``, ``minlp_mpc.py:79-86``)."""
+        binaries = set(self.var_ref.binary_controls)
+        for name, value in result["u0"].items():
+            if name in binaries:
+                self.set(name, float(round(value)))
+            else:
+                var = self.vars[name]
+                self.set(name, float(np.clip(value, var.lb, var.ub)))

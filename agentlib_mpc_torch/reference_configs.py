@@ -7,7 +7,22 @@
   that takes its plant step every 10 s;
 - :func:`linear_qp_config`: the agent of ``examples/linear_qp_mpc.py``:
   MPC and plant of a ``LinearRCZone`` in one agent (N=8, a step every
-  300 s), which the certified-LQ routing sends to the QP fast path.
+  300 s), which the certified-LQ routing sends to the QP fast path;
+- :func:`mhe_one_room_configs`: the two agents of
+  ``examples/mhe_one_room.py``: a controller running an ``mhe`` module
+  (``jax_mhe``, horizon 10, a step every 120 s, degree-2 collocation)
+  beside an ``mpc`` that consumes its live load estimate, and a plant
+  with the true load, all on :class:`RoomLoadParam` (the example's model);
+- :func:`mhe_estimator_configs`: the estimator and plant of
+  ``tests/test_mhe.py`` on :class:`RoomWithLoadParam` (horizon 8, 60 s);
+- :func:`minlp_switched_room_configs`: the two agents of
+  ``examples/minlp_switched_room.py``: a ``minlp_mpc`` over ``jax_cia``
+  (``max_switches`` 6) or ``jax_minlp_bb`` (``max_nodes`` 48,
+  ``batch_pairs`` 4) on the ``SwitchedRoom`` zoo model (multiple
+  shooting, N=8, a step every 300 s) and its plant;
+- :func:`switched_room_backend_config` and
+  :data:`SWITCHED_ROOM_ROLES`: the backend configs and variable roles of
+  ``tests/test_minlp.py``.
 
 Each takes a ``solver`` dict merged over its solver options (for example
 ``{"kkt_method": "ldl"}``). Run them with
@@ -17,6 +32,17 @@ Each takes a ``solver`` dict merged over its solver options (for example
 """
 
 from __future__ import annotations
+
+from agentlib_mpc_torch.models.model import Model, ModelEquations
+from agentlib_mpc_torch.models.objective import SubObjective
+from agentlib_mpc_torch.models.variables import (
+    Var,
+    control_input,
+    output,
+    parameter,
+    state,
+)
+from agentlib_mpc_torch.models.zoo import OneRoom
 
 #: the one-room MAS: horizon, plant step (s), comfort bound and supply
 #: temperature (K)
@@ -136,3 +162,260 @@ def linear_qp_config(solver: dict | None = None) -> dict:
             },
         ],
     }
+
+
+#: examples/mhe_one_room.py: controller step (s), comfort bound and start
+#: temperature (K), the plant's true heat load and the controller's first
+#: guess (W)
+MHE_DT, MHE_UB, MHE_START = 120.0, 295.15, 298.16
+MHE_TRUE_LOAD, MHE_GUESS_LOAD = 260.0, 100.0
+
+
+class RoomLoadParam(Model):
+    """examples/mhe_one_room.py's one-room cooling model with the heat load
+    as a *parameter*, so the MHE can estimate it (it becomes a
+    zero-dynamics state in the MHE OCP, reference
+    ``casadi_/mhe.py:34-123``)."""
+
+    inputs = [
+        control_input("mDot", 0.0225, lb=0.0, ub=0.05, unit="m^3/s"),
+        control_input("T_in", 290.15, unit="K"),
+        control_input("T_upper", MHE_UB, unit="K"),
+    ]
+    states = [
+        state("T", 293.15, lb=288.15, ub=303.15, unit="K"),
+        state("T_slack", 0.0, unit="K"),
+    ]
+    parameters = [
+        parameter("cp", 1000.0),
+        parameter("C", 100000.0),
+        Var(name="load", value=150.0, lb=0.0, ub=500.0, unit="W",
+            role="parameter"),
+        parameter("s_T", 1.0),
+        parameter("r_mDot", 0.1),
+    ]
+    outputs = [output("T_out", unit="K")]
+
+    def setup(self, v):
+        eq = ModelEquations()
+        eq.ode("T", v.cp * v.mDot / v.C * (v.T_in - v.T) + v.load / v.C)
+        eq.alg("T_out", v.T)
+        eq.constraint(0.0, v.T + v.T_slack, v.T_upper)
+        eq.objective = (
+            SubObjective(v.mDot, weight=v.r_mDot, name="control_costs")
+            + SubObjective(v.T_slack ** 2, weight=v.s_T, name="temp_slack")
+        )
+        return eq
+
+
+def mhe_one_room_configs(horizon: int = 10, solver: dict | None = None):
+    """examples/mhe_one_room.py's controller (MHE beside MPC) and plant."""
+    solver = {"max_iter": 50, **(solver or {})}
+    controller = {
+        "id": "Controller",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "mhe", "type": "mhe",
+             "optimization_backend": {
+                 "type": "jax_mhe",
+                 "model": {"class": RoomLoadParam},
+                 "discretization_options": {"collocation_order": 2},
+                 "solver": dict(solver),
+             },
+             "time_step": MHE_DT,
+             "horizon": horizon,
+             "state_weights": {"T": 1.0},
+             "states": [
+                 {"name": "T", "value": MHE_START, "alias": "T",
+                  "source": "Plant"},
+             ],
+             "known_inputs": [
+                 {"name": "mDot", "value": 0.02, "alias": "mDot"},
+                 {"name": "T_in", "value": 290.15},
+                 {"name": "T_upper", "value": MHE_UB},
+             ],
+             "estimated_parameters": [
+                 {"name": "load", "value": MHE_GUESS_LOAD, "lb": 0.0,
+                  "ub": 500.0, "alias": "load_estimate"},
+             ]},
+            {"module_id": "mpc", "type": "mpc",
+             "optimization_backend": {
+                 "type": "jax",
+                 "model": {"class": RoomLoadParam},
+                 "discretization_options": {"collocation_order": 2},
+                 "solver": dict(solver),
+             },
+             "time_step": MHE_DT,
+             "prediction_horizon": horizon,
+             "parameters": [
+                 {"name": "load", "value": MHE_GUESS_LOAD,
+                  "alias": "load_estimate", "source": "Controller"},
+                 {"name": "s_T", "value": 1.0},
+                 {"name": "r_mDot", "value": 0.1},
+             ],
+             "inputs": [
+                 {"name": "T_in", "value": 290.15},
+                 {"name": "T_upper", "value": MHE_UB},
+             ],
+             "controls": [
+                 {"name": "mDot", "value": 0.02, "ub": 0.05, "lb": 0.0,
+                  "alias": "mDot"},
+             ],
+             "states": [
+                 {"name": "T", "value": MHE_START, "ub": 303.15,
+                  "lb": 288.15, "alias": "T", "source": "Plant"},
+             ]},
+        ],
+    }
+    plant = {
+        "id": "Plant",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "room", "type": "simulator",
+             "model": {"class": RoomLoadParam,
+                       "states": [{"name": "T", "value": MHE_START}],
+                       "parameters": [{"name": "load",
+                                       "value": MHE_TRUE_LOAD}]},
+             "t_sample": 60,
+             "outputs": [{"name": "T_out", "value": MHE_START,
+                          "alias": "T"}],
+             "inputs": [{"name": "mDot", "value": 0.02, "alias": "mDot"}]},
+        ],
+    }
+    return [controller, plant]
+
+
+class RoomWithLoadParam(OneRoom):
+    """tests/test_mhe.py's OneRoom variant with the heat load as a
+    *parameter* so the MHE can estimate it (the reference estimates
+    parameters the same way, ``mhe.py:70-79``)."""
+
+    inputs = [v for v in OneRoom.inputs if v.name != "load"]
+    parameters = list(OneRoom.parameters) + [
+        Var(name="load", value=150.0, lb=0.0, ub=500.0, role="parameter"),
+    ]
+
+
+def mhe_estimator_configs(solver: dict | None = None):
+    """tests/test_mhe.py's estimator agent and plant (true load 260 W, a
+    step every 60 s, horizon 8)."""
+    estimator = {
+        "id": "Estimator",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {
+                "module_id": "mhe",
+                "type": "mhe",
+                "optimization_backend": {
+                    "type": "jax_mhe",
+                    "model": {"class": RoomWithLoadParam},
+                    "discretization_options": {"collocation_order": 2},
+                    "solver": {"max_iter": 50, **(solver or {})},
+                },
+                "time_step": 60.0,
+                "horizon": 8,
+                "state_weights": {"T": 1.0},
+                "states": [
+                    {"name": "T", "value": 298.16, "alias": "T",
+                     "source": "Plant"},
+                ],
+                "known_inputs": [
+                    {"name": "mDot", "value": 0.02, "alias": "mDot",
+                     "source": "Plant"},
+                    {"name": "T_in", "value": 290.15},
+                    {"name": "T_upper", "value": 295.15},
+                ],
+                "estimated_parameters": [
+                    {"name": "load", "value": 100.0, "lb": 0.0,
+                     "ub": 500.0},
+                ],
+            },
+        ],
+    }
+    plant = {
+        "id": "Plant",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {
+                "module_id": "room",
+                "type": "simulator",
+                "model": {"class": RoomWithLoadParam,
+                          "states": [{"name": "T", "value": 298.16}],
+                          "parameters": [{"name": "load",
+                                          "value": MHE_TRUE_LOAD}]},
+                "t_sample": 60.0,
+                "outputs": [{"name": "T_out", "value": 298.16,
+                             "alias": "T"}],
+                "inputs": [{"name": "mDot", "value": 0.02, "alias": "mDot",
+                            "shared": True}],
+            },
+        ],
+    }
+    return [estimator, plant]
+
+
+#: examples/minlp_switched_room.py: controller step (s), start temperature
+#: and comfort bound (K)
+MINLP_DT, MINLP_START, MINLP_UB = 300.0, 297.15, 295.15
+#: tests/test_minlp.py's variable roles of the SwitchedRoom backends
+SWITCHED_ROOM_ROLES = {"states": ["T"], "binary_controls": ["on"],
+                       "inputs": ["load", "T_upper"],
+                       "parameters": ["C", "Q_cool", "s_T", "r_on"]}
+
+
+def switched_room_backend_config(backend_type: str = "jax_cia",
+                                 solver: dict | None = None,
+                                 **extra) -> dict:
+    """The SwitchedRoom backend of examples/minlp_switched_room.py and
+    tests/test_minlp.py (multiple shooting, budget 60); ``extra`` adds
+    keys such as ``cia_options``, ``bb_options`` or ``binary_method``."""
+    return {"type": backend_type,
+            "model": {"class": "SwitchedRoom"},
+            "discretization_options": {"method": "multiple_shooting"},
+            "solver": {"max_iter": 60, **(solver or {})},
+            **extra}
+
+
+def minlp_switched_room_configs(prediction_horizon: int = 8,
+                                backend_type: str = "jax_cia",
+                                solver: dict | None = None):
+    """examples/minlp_switched_room.py's controller (``minlp_mpc``) and
+    plant; ``backend_type`` "jax_cia" or "jax_minlp_bb"."""
+    if backend_type == "jax_minlp_bb":
+        # exact search over the unconstrained-switching MINLP (the
+        # switch budget is a CIA concept)
+        extra = {"bb_options": {"max_nodes": 48, "batch_pairs": 4}}
+    else:
+        extra = {"cia_options": {"max_switches": 6}}
+    backend = switched_room_backend_config(backend_type, solver, **extra)
+    controller = {
+        "id": "Controller",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "mpc", "type": "minlp_mpc",
+             "optimization_backend": backend,
+             "time_step": MINLP_DT,
+             "prediction_horizon": prediction_horizon,
+             "inputs": [{"name": "load", "value": 180.0},
+                        {"name": "T_upper", "value": MINLP_UB}],
+             "binary_controls": [{"name": "on", "value": 0,
+                                  "lb": 0, "ub": 1}],
+             "states": [{"name": "T", "value": MINLP_START, "alias": "T",
+                         "source": "Plant"}],
+             "outputs": [{"name": "T_out", "shared": False}],
+             "parameters": []},
+        ],
+    }
+    plant = {
+        "id": "Plant",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "room", "type": "simulator",
+             "model": {"class": "SwitchedRoom",
+                       "states": [{"name": "T", "value": MINLP_START}]},
+             "t_sample": 60,
+             "inputs": [{"name": "on", "alias": "on"}],
+             "outputs": [{"name": "T_out", "alias": "T"}]},
+        ],
+    }
+    return [controller, plant]

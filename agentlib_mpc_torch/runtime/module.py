@@ -43,8 +43,6 @@ MODULE_TYPES: dict[str, Type["BaseModule"]] = {}
 DEFERRED_MODULE_TYPES: dict[str, str] = {
     **dict.fromkeys(("admm_local", "local_admm", "admm", "admm_coordinator",
                      "admm_coordinated"), "2b (ADMM on the module path)"),
-    "mhe": "2c (MHE)",
-    "minlp_mpc": "2d (MINLP)",
     **dict.fromkeys(("ml_simulator", "ann_trainer", "gpr_trainer",
                      "linreg_trainer", "keras_ann_trainer"), "3 (ML)"),
 }

@@ -9,8 +9,9 @@ non-zero without printing a result:
 1. env      — card, torch and CUDA versions, ``nvidia-smi`` name/power limit.
 2. build    — compile ``agentlib_mpc_torch/csrc/*.cu`` with nvcc (one
               process per source, in parallel; ``-Xptxas -v`` report,
-              which must show no spills); the kernels' own shared-memory
-              sizes and MAX_M must equal those ``ops/kkt.py`` routes by.
+              which must show no spills) and ``csrc/cia.cpp`` with g++;
+              the kernels' own shared-memory sizes and MAX_M must equal
+              those ``ops/kkt.py`` routes by.
 3. kernels  — each LDLᵀ kernel against its plain PyTorch version on the
               card (bitwise), on seeded quasi-definite KKT batches at the
               main path's shape (256, 92), ragged shapes, one above 48 KB of
@@ -22,7 +23,7 @@ non-zero without printing a result:
               M = 32, 64, 92, 128 (B = 256), whose slope in M separates the
               recursion's per-step latency from the load.
 4. slice    — the 256-zone consensus-ADMM control step (``build_step``) in
-              f32 on the card: one cold step and three warm steps, with the
+              f32 on the card: one cold step and two warm steps, with the
               kernels' launch counters reset just before and read just after.
    profile  — one more warm step under ``torch.profiler``: device time
               by operator, the card's busy share of the step, host time.
@@ -36,7 +37,7 @@ non-zero without printing a result:
               library yardstick at each.
 7. long_horizon — the 256-zone step a day ahead (N=96, dt=900 s, KKT
               866 of 97 stages of 10), "auto" routed to the stage sweep:
-              one cold and three warm steps in f32 with the launch counters
+              one cold and two warm steps in f32 with the launch counters
               reset just before and read just after (launches must equal
               97 factor and 1 254 solve launches per interior-point
               iteration), a profiled warm step, then the quality gate: the
@@ -52,7 +53,7 @@ non-zero without printing a result:
               92) on the Mehrotra QP fast path (``build_step(model=
               "linear", inner="qp")``) in f32: the certified routing
               verdicts of both fleets (linear ``lq``, zone ``not_lq``),
-              one cold and three warm steps with the launch counters
+              one cold and two warm steps with the launch counters
               reset just before and read just after (exactly 1 factor and
               6 solve launches per QP iteration), a profiled warm step;
               quality: the same steps in f64 with the plain versions on
@@ -76,7 +77,7 @@ non-zero without printing a result:
 12. fused_slice — ``bench.py``'s ``--mesh-ab`` workload at one device
               through the port's ``FusedADMM``: 256 ``ZoneWithSupply``
               zones, N=10, inner budgets 10 / 1, 10 ADMM iterations with
-              the Boyd exit: a cold and three warm rounds with the launch
+              the Boyd exit: a cold and two warm rounds with the launch
               counters reset just before and read just after (exactly 6
               solve launches per factor launch, at most the inner budgets'
               factor launches, every factor at (256, 92)), a profiled warm
@@ -101,7 +102,7 @@ non-zero without printing a result:
               (``agentlib_mpc_torch/reference_configs.py``; the ``mpc``
               module on the ``jax`` backend, N=15, degree-2 Legendre
               collocation, KKT 137; the ``simulator`` every 10 s) for
-              7 200 s in f32 on the card: launch counters reset just before
+              3 600 s in f32 on the card: launch counters reset just before
               and read just after (only at (1, 137), one factor and three
               solves per interior-point iteration), every solve successful
               with the actuation guard at level 0 and no warm-start reset;
@@ -119,13 +120,42 @@ non-zero without printing a result:
               the CPU is reported beside it. (In f32 the pivot-free LDLᵀ
               breaks down on this QP in both packages:
               ``scripts/linear_qp_f32_witness.py``.)
-17. path_shapes — every (B, M) a path launched, in each type it launched
+17. module_mhe — ``examples/mhe_one_room.py``'s two agents for 3 600 s
+              in f64 on the card (the float64 kernels): the ``mhe`` module
+              (``jax_mhe``, horizon 10, its estimation OCP certified LQ:
+              the QP fast path at (1, 142), one factor and six solves per
+              QP iteration) beside an ``mpc`` that consumes its load
+              estimate (NLP at (1, 92), one factor and three solves per
+              iteration), the plant with the true 260 W; every solve
+              successful, the example's gates (estimate within 40 W of
+              260 W, the room 1 K below its start), the final estimate
+              within 1 % of the same loop in f64 on the CPU.
+18. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
+              agent for 7 200 s in f64: the relaxed program on the QP at
+              (1, 34), the CIA schedule from the native library
+              (``csrc/cia.cpp``, never the Python version), the fixed
+              program at (1, 26); launches exact per solve; the example's
+              gates (binary commands, the zone below UB + 0.5 K, a duty
+              cycle inside (0, 1)); final temperature within 0.05 K and
+              duty within 0.02 of the same loop in f64 on the CPU.
+19. module_minlp_bb — the same agent on ``jax_minlp_bb`` (max_nodes 48,
+              batch_pairs 4) for 2 100 s in f64: node relaxations as one
+              batched NLP per sweep at (8, 34), exact launches per fixed
+              solve and per sweep, the example's gates, on every step the
+              incumbent at most the rounding heuristic's
+              (``bb_proven_optimal`` and ``bb_improved_on_heuristic`` per
+              step in the line). module_one_room, module_linear_qp and
+              module_mhe each have a ``*_profile`` line.
+20. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
 
-Then the run's wall time, the ``nvidia-smi`` line, the ``kernels`` JSON
-line and, last, ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
+The module phases' f64 CPU references run in subprocesses of this script
+(``--cpu-reference NAME``) started at the beginning, beside the card's
+phases, and are ended with the script. Then the run's wall time, the
+``nvidia-smi`` line, the ``kernels`` JSON line and, last,
+``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
 ``torch.cuda.is_available()`` is False. Imports nothing of JAX, of the JAX
 package or of ``bench.py``.
 """
@@ -169,7 +199,10 @@ RESIDUAL_TOL = 1e-3
 #: allow about 6x the larger, and a fifth of the spread itself.
 ZBAR_TOL = 2e-3
 SPREAD_TOL = 2e-3
-N_WARM = 3
+#: warm steps after the cold one on every path (their median is the warm
+#: time): with three, the whole script took 1 329 s on an H100 at 700 W,
+#: over the 1 200 s it may take
+N_WARM = 2
 #: the stage sweep's kernel shapes (B, M): the factor of the stage blocks
 #: of 256 zones (collocation blocks of 10, shooting blocks of 5); the solve
 #: of ldl_solve_many's right-hand sides (10 per block of 10, 5 per block
@@ -277,7 +310,10 @@ FLEET_RESUME_TOL = 0.0
 #: (agentlib_mpc_torch/reference_configs.py): the two-agent one-room MAS
 #: at its full size (N=15, degree-2 Legendre collocation, the plant every
 #: 10 s) and the linear-QP agent (N=8, LinearRCZone on the QP fast path,
-#: the plant every 300 s), each 7 200 s of closed loop
+#: the plant every 300 s), 3 600 s (one-room: 13 solves and 360 plant
+#: steps; cut from 7 200 s for the script's time limit) and 7 200 s of
+#: closed loop
+ONE_ROOM_UNTIL = 3600.0
 MODULE_UNTIL = 7200.0
 #: card f32 against the CPU's f64 with the plain LDLᵀ, relative, on the
 #: one-room loop's comfort error (AIE) and cooling energy: the JAX
@@ -299,6 +335,40 @@ LINEAR_QP_T_LIMIT = 295.25
 #: start 1e-12 K warmer moves the last u0 by 1.86 W, 1e-9 K by 24 W); the
 #: card's loop and the CPU's are reported side by side
 LINEAR_QP_U0_TOL_W = 1e-6
+
+#: moving-horizon estimation and mixed-integer MPC on the module path, over
+#: the reference's examples (agentlib_mpc_torch/reference_configs.py), all
+#: three in float64 on the card (the kernels' float64 instantiations): the
+#: JAX package's own float32 loops fail solves of both MINLP examples on
+#: its CPU (CIA 1 of 25, branch-and-bound 2 of 25), and the port's float32
+#: NLP fails 3 of 31 solves of the MHE example's MPC where the JAX
+#: package's float32 succeeds only through its acceptable-exit path
+#: (PERF.md; scripts/module_f32_witness.py)
+#:
+#: examples/mhe_one_room.py's two agents (MHE beside MPC, the plant with
+#: the true load) for the example's whole run, and its gates: the estimate
+#: within 40 W of the true 260 W, the room 1 K below its 298.16 K start
+MHE_UNTIL = 3600.0
+MHE_LOAD_GATE_W = 40.0
+MHE_COOLING_K = 1.0
+#: the card's final load estimate against the same loop in f64 on the CPU
+#: (plain LDLᵀ), relative
+MHE_LOAD_RTOL = 0.01
+#: examples/minlp_switched_room.py's gates: the actuated chiller command
+#: binary, the zone below UB + 0.5 K, a duty cycle strictly inside (0, 1)
+MINLP_UB_MARGIN_K = 0.5
+#: the jax_cia agent for the example's whole run, against the same loop in
+#: f64 on the CPU: final zone temperature (K) and duty cycle
+MINLP_CIA_UNTIL = 7200.0
+MINLP_CIA_T_TOL_K = 0.05
+MINLP_CIA_DUTY_TOL = 0.02
+#: the jax_minlp_bb agent at the example's width (N=8, max_nodes 48,
+#: batch_pairs 4), cut in depth to 2 100 s (8 controller steps): the
+#: example's controller keeps the chiller on until it has cooled the zone
+#: to ~291.5 K and first switches it off at t = 1 800 s (both packages,
+#: f64 on the CPU), so 2 100 s is the shortest run whose duty cycle can
+#: fall inside (0, 1)
+MINLP_BB_UNTIL = 2100.0
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -363,8 +433,15 @@ def phase_build():
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.utils import cuda_build
 
+    from agentlib_mpc_torch import native
+
     t0 = time.perf_counter()
     results = cuda_build.build_all()
+    # the host C++ of the MINLP path (the CIA branch-and-bound), by g++
+    t_cxx = time.perf_counter()
+    cia_lib = native.build("cia")
+    host = {"cia": {"seconds": time.perf_counter() - t_cxx,
+                    "library": cia_lib.name}}
     # the shared-memory formulas ldl_fits reads must be the kernels' own
     formulas = {"ldl_factor": kkt.factor_smem_bytes,
                 "ldl_solve": kkt.solve_smem_bytes}
@@ -391,7 +468,8 @@ def phase_build():
           "libraries": {
               name: {"seconds": r.seconds, "cached": r.cached,
                      "ptxas": reports[name]}
-              for name, r in results.items()}})
+              for name, r in results.items()},
+          "host_libraries": host})
     for name, lines in reports.items():
         # each usage line follows the line naming its kernel
         spills = [(entry, ln) for entry, ln in zip([""] + lines, lines)
@@ -1583,7 +1661,7 @@ def fused_quality_rows(torch, alias, rows, rows64):
 
 def phase_fused(torch, dev, smi, model: str):
     """One fused engine at 256 zones on the card: launch counts of a cold
-    and three warm rounds, a profiled warm round, the quality gate
+    and two warm rounds, a profiled warm round, the quality gate
     against f64 on the CPU with pinned exits, and (zone fleet) a
     quarantined NaN lane."""
     from agentlib_mpc_torch.ops import kkt
@@ -1833,13 +1911,17 @@ def phase_fused_fleet(torch, dev, smi):
 
 
 def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
-              count_launches: bool, capture: bool = False):
+              count_launches: bool, capture: bool = False, extra_at=(),
+              instrument=None):
     """Build a LocalMAS on ``dev`` in ``dtype`` and run it ``until``: per
     solve its wall ms, stats row, guard level and (on the card) kernel
     launches; the simulator's rows and its total wall time. Launch counts
     are reset just before the run. With ``capture``, each solve's row also
     keeps its inputs and the warm state it started from (on the host),
-    for :func:`replay_solves`."""
+    for :func:`replay_solves`. The backends of the modules ``extra_at``
+    ((agent, module) pairs beside the guarded MPC) are counted the same
+    way, into ``run["extra"]["agent/module"]``; ``instrument(mas)`` runs
+    just before the launch counts are reset."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.runtime.mas import LocalMAS
 
@@ -1851,6 +1933,21 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
     solves, sim_s = [], [0.0]
     solve, sim_step, assess = mpc.backend.solve, sim.do_step, \
         mpc.guard.assess
+    extra = {}
+    for agent, module_id in extra_at:
+        module = mas.agents[agent].get_module(module_id)
+        rows = []
+
+        def counted_extra(now, variables, _solve=module.backend.solve,
+                          _rows=rows):
+            before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+            result = _solve(now, variables)
+            _rows.append({"factor": kkt.ldl_factor.launches - before[0],
+                          "solve": kkt.ldl_solve.launches - before[1]})
+            return result
+
+        module.backend.solve = counted_extra
+        extra[f"{agent}/{module_id}"] = {"module": module, "solves": rows}
 
     def counted_solve(now, variables):
         if capture:
@@ -1878,6 +1975,8 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
 
     mpc.backend.solve, sim.do_step = counted_solve, timed_sim_step
     mpc.guard.assess = recorded_assess
+    if instrument is not None:
+        instrument(mas)
     if count_launches:
         torch.cuda.synchronize()
         kkt.reset_launch_counts()
@@ -1885,13 +1984,17 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
     mas.run(until=until)
     wall_s = time.perf_counter() - t0
     totals = launch_totals(kkt) if count_launches else None
-    for row, stats in zip(solves, mpc.backend.stats_history):
-        row.update(ms=stats["solve_wall_time"] * 1e3,
-                   iterations=stats["iterations"], success=stats["success"],
-                   kkt_path=stats["kkt_path"])
+    for rows, backend in [(solves, mpc.backend)] + [
+            (e["solves"], e["module"].backend) for e in extra.values()]:
+        for row, stats in zip(rows, backend.stats_history):
+            row.update(ms=stats["solve_wall_time"] * 1e3,
+                       iterations=stats["iterations"],
+                       success=stats["success"], kkt_path=stats["kkt_path"],
+                       stats=stats)
     return {"mas": mas, "mpc": mpc, "sim": sim, "solves": solves,
-            "totals": totals, "build_s": build_s, "wall_s": wall_s,
-            "sim_s": sim_s[0], "rows": [dict(r) for r in sim._rows]}
+            "extra": extra, "totals": totals, "build_s": build_s,
+            "wall_s": wall_s, "sim_s": sim_s[0],
+            "rows": [dict(r) for r in sim._rows]}
 
 
 def replay_solves(torch, configs, mpc_at, run):
@@ -1975,13 +2078,91 @@ def profile_module_solve(torch, run, name):
                          warm_ms, name=name)
 
 
-def phase_module_one_room(torch, dev, smi):
+#: the module phases' f64 references on the CPU, each run as
+#: (configs, mpc_at, sim_at, extra_at, until): they run in subprocesses
+#: started at the beginning of the script, beside the card's phases
+def reference_specs():
+    from agentlib_mpc_torch import reference_configs as rc
+
+    plain = {"kkt_method": "ldl"}
+    return {
+        "module_one_room": (lambda: rc.one_room_configs(solver=plain),
+                            ("myMPCAgent", "myMPC"), ("SimAgent", "room"),
+                            (), ONE_ROOM_UNTIL),
+        "module_linear_qp": (lambda: [rc.linear_qp_config(plain)],
+                             ("LinearZone", "mpc"), ("LinearZone", "sim"),
+                             (), MODULE_UNTIL),
+        "module_mhe": (lambda: rc.mhe_one_room_configs(solver=plain),
+                       ("Controller", "mpc"), ("Plant", "room"),
+                       (("Controller", "mhe"),), MHE_UNTIL),
+        "module_minlp_cia": (lambda: rc.minlp_switched_room_configs(
+            backend_type="jax_cia", solver=plain), ("Controller", "mpc"),
+            ("Plant", "room"), (), MINLP_CIA_UNTIL),
+    }
+
+
+def reference_run(name: str) -> dict:
+    """One module phase's loop in f64 on the CPU with the plain LDLᵀ, as
+    plain data: the simulator's rows, per solve its row (success,
+    iterations, u0, ms, stats), the wall times, and the values the phase
+    reads off the finished loop."""
+    import torch
+
+    configs, mpc_at, sim_at, extra_at, until = reference_specs()[name]
+    run = drive_mas(torch, configs(), "cpu", torch.float64, until, mpc_at,
+                    sim_at, count_launches=False, extra_at=extra_at)
+    keep = ("success", "iterations", "u0", "ms", "stats", "guard_level")
+    out = {"rows": run["rows"], "wall_s": run["wall_s"],
+           "build_s": run["build_s"], "sim_s": run["sim_s"],
+           "solves": [{k: r[k] for k in keep if k in r}
+                      for r in run["solves"]],
+           "extra": {key: [{k: r[k] for k in keep if k in r}
+                           for r in e["solves"]]
+                     for key, e in run["extra"].items()}}
+    if name == "module_mhe":
+        out["load"] = float(run["extra"]["Controller/mhe"]["module"]
+                            .get_value("load"))
+    return out
+
+
+class References:
+    """The f64 CPU references of the module phases, each computed by a
+    subprocess of this script (``--cpu-reference NAME``, one CPU thread)
+    started at once; :meth:`get` waits for one, :meth:`close` ends every
+    one still running."""
+
+    def __init__(self, names):
+        import os
+
+        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        self.procs = {
+            name: subprocess.Popen(
+                [sys.executable, __file__, "--cpu-reference", name],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env)
+            for name in names}
+
+    def get(self, name: str) -> dict:
+        out, err = self.procs[name].communicate()
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        check(self.procs[name].returncode == 0 and bool(lines),
+              f"{name}: the f64 CPU reference failed:\n{err[-2000:]}")
+        return json.loads(lines[-1])
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+
+
+def phase_module_one_room(torch, dev, smi, ref):
     """The two-agent one-room MAS through LocalMAS on the card in f32,
     held against the same MAS in f64 on the CPU with the plain LDLᵀ."""
     from agentlib_mpc_torch.reference_configs import one_room_configs
 
     run = drive_mas(torch, one_room_configs(), dev, torch.float32,
-                    MODULE_UNTIL, ("myMPCAgent", "myMPC"),
+                    ONE_ROOM_UNTIL, ("myMPCAgent", "myMPC"),
                     ("SimAgent", "room"), count_launches=True)
     backend = run["mpc"].backend
     opts = backend.solver_options
@@ -1989,10 +2170,6 @@ def phase_module_one_room(torch, dev, smi):
     # one factor per interior-point iteration; its solve and two
     # refinement solves (the corrector, off here, adds a second re-solve)
     per_factor = 6 if opts.corrector else 3
-    ref = drive_mas(torch, one_room_configs(solver={"kkt_method": "ldl"}),
-                    "cpu", torch.float64, MODULE_UNTIL,
-                    ("myMPCAgent", "myMPC"), ("SimAgent", "room"),
-                    count_launches=False)
     check(all(r["success"] for r in ref["solves"]),
           "module_one_room: the f64 CPU reference failed a solve")
     aie, energy = one_room_metrics(run["rows"])
@@ -2001,7 +2178,7 @@ def phase_module_one_room(torch, dev, smi):
     mdot64 = np.array([r["mDot"] for r in ref["rows"]])
     temps = [r["T_out"] for r in run["rows"]]
     record = {"phase": "module_one_room", "dtype": "float32", "kkt_size": M,
-              "horizon": backend.N, "until_s": MODULE_UNTIL,
+              "horizon": backend.N, "until_s": ONE_ROOM_UNTIL,
               **module_summary(run), "launches": run["totals"],
               "solves_per_factor": per_factor,
               "final_room_temperature_K": temps[-1],
@@ -2030,7 +2207,7 @@ def phase_module_one_room(torch, dev, smi):
     return run["totals"]
 
 
-def phase_module_linear_qp(torch, dev, smi):
+def phase_module_linear_qp(torch, dev, smi, ref):
     """examples/linear_qp_mpc.py's agent through LocalMAS on the card in
     f64 on the QP fast path (the float64 kernels), held against the same
     run in f64 on the CPU with the plain LDLᵀ."""
@@ -2043,9 +2220,6 @@ def phase_module_linear_qp(torch, dev, smi):
     check(backend.uses_qp_fast_path is True,
           "module_linear_qp: LinearRCZone did not route to the QP fast path")
     M = backend.ocp.n_w + backend.ocp.n_g
-    ref = drive_mas(torch, [linear_qp_config({"kkt_method": "ldl"})], "cpu",
-                    torch.float64, MODULE_UNTIL, ("LinearZone", "mpc"),
-                    ("LinearZone", "sim"), count_launches=False)
     replay = replay_solves(torch, [linear_qp_config({"kkt_method": "ldl"})],
                            ("LinearZone", "mpc"), run)
     u0 = np.array([row["u0"]["Q"] for row in run["solves"]])
@@ -2094,9 +2268,278 @@ def phase_module_linear_qp(torch, dev, smi):
     return run["totals"]
 
 
+def check_solve_launches(name, rows, factor_per_it, solve_per_it):
+    """Every solve successful, on the LDLᵀ path, with exactly
+    ``factor_per_it`` factor and ``solve_per_it`` solve launches per inner
+    iteration (``rows`` from :func:`drive_mas`)."""
+    for k, row in enumerate(rows):
+        check(row["success"] and row["kkt_path"] == "ldl",
+              f"{name} solve {k}: success {row['success']}, kkt_path "
+              f"{row['kkt_path']}")
+        it = row["iterations"]
+        check(row["factor"] == factor_per_it * it
+              and row["solve"] == solve_per_it * it,
+              f"{name} solve {k}: {row['factor']} factor / {row['solve']} "
+              f"solve launches for {it} iterations (expected "
+              f"{factor_per_it}/{solve_per_it} per iteration)")
+
+
+def check_shapes_f64(name, totals, shapes):
+    """The kernels launched only at ``shapes``, only in float64."""
+    for kernel in ("ldl_factor", "ldl_solve"):
+        check(totals["shapes_f64"][kernel] == sorted(shapes)
+              and not totals["shapes"][kernel],
+              f"{name}: {kernel} launched at {totals['shapes_f64'][kernel]} "
+              f"(float64) and {totals['shapes'][kernel]} (float32), "
+              f"expected only {sorted(shapes)} in float64")
+
+
+def per_factor(backend) -> int:
+    """Solve launches per factor of one NLP iteration: the step and two
+    refinement solves, twice with the corrector."""
+    return 6 if backend.solver_options.corrector else 3
+
+
+def phase_module_mhe(torch, dev, smi, ref):
+    """examples/mhe_one_room.py's two agents through LocalMAS on the card
+    in f64: the MHE (QP fast path) and the MPC consuming its estimate,
+    held against the same MAS in f64 on the CPU with the plain LDLᵀ."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    run = drive_mas(torch, rc.mhe_one_room_configs(), dev, torch.float64,
+                    MHE_UNTIL, ("Controller", "mpc"), ("Plant", "room"),
+                    count_launches=True, extra_at=[("Controller", "mhe")])
+    mhe = run["extra"]["Controller/mhe"]
+    mhe_backend, mpc_backend = mhe["module"].backend, run["mpc"].backend
+    sizes = {"mhe": mhe_backend.ocp.n_w + mhe_backend.ocp.n_g,
+             "mpc": mpc_backend.ocp.n_w + mpc_backend.ocp.n_g}
+    load = float(mhe["module"].get_value("load"))
+    load64 = ref["load"]
+    temps = [r["T_out"] for r in run["rows"]]
+    emit({"phase": "module_mhe", "dtype": "float64",
+          "kkt_size": sizes, "horizon": mhe_backend.N, "until_s": MHE_UNTIL,
+          "qp_fast_path": {"mhe": mhe_backend.uses_qp_fast_path,
+                           "mpc": mpc_backend.uses_qp_fast_path},
+          "mpc": module_summary(run),
+          "mhe": module_summary({**run, "solves": mhe["solves"]}),
+          "launches": run["totals"],
+          "solves_per_factor": {"mhe": 6, "mpc": per_factor(mpc_backend)},
+          "load_estimate_W": load, "true_load_W": rc.MHE_TRUE_LOAD,
+          "load_estimates_W": [float(r["traj"]["x"][-1, -1])
+                               for r in mhe["module"]._history_rows],
+          "load_estimate_f64_cpu_W": load64,
+          "load_rel_diff_f64": abs(load - load64) / abs(load64),
+          "load_rtol": MHE_LOAD_RTOL,
+          "final_room_temperature_K": temps[-1],
+          "f64_cpu_final_room_temperature_K": ref["rows"][-1]["T_out"],
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "guard_level_max": max(r.get("guard_level", -1)
+                                 for r in run["solves"]),
+          "warm_start_resets": mhe_backend.warm_start_resets
+          + mpc_backend.warm_start_resets,
+          "nvidia_smi": smi})
+    check(sizes == {"mhe": 142, "mpc": 92},
+          f"module_mhe: KKT sizes {sizes}, expected MHE 142 and MPC 92")
+    check(mhe_backend.uses_qp_fast_path and
+          not mpc_backend.uses_qp_fast_path,
+          "module_mhe: the MHE OCP must route to the QP, the MPC to the NLP")
+    check(all(r.get("guard_level") == 0 for r in run["solves"]),
+          "module_mhe: the MPC's guard left level 0")
+    check(mhe_backend.warm_start_resets == mpc_backend.warm_start_resets
+          == 0, "module_mhe: a warm start was reset")
+    # the QP: one factor and six solves (predictor and corrector, each with
+    # two refinement steps) per QP iteration
+    check_solve_launches("module_mhe (MHE)", mhe["solves"], 1, 6)
+    check_solve_launches("module_mhe (MPC)", run["solves"], 1,
+                         per_factor(mpc_backend))
+    check_shapes_f64("module_mhe", run["totals"], [(1, 142), (1, 92)])
+    check(all(r["success"] for r in ref["solves"]
+              + ref["extra"]["Controller/mhe"]),
+          "module_mhe: the f64 CPU reference failed a solve")
+    check(abs(load - rc.MHE_TRUE_LOAD) < MHE_LOAD_GATE_W,
+          f"module_mhe: load estimate {load} W, true {rc.MHE_TRUE_LOAD} W")
+    check(np.isfinite(temps).all()
+          and temps[-1] < rc.MHE_START - MHE_COOLING_K,
+          f"module_mhe: the room ended at {temps[-1]} K")
+    check(abs(load - load64) <= MHE_LOAD_RTOL * abs(load64),
+          f"module_mhe: load estimate {load} W against f64 CPU {load64} W")
+    variables = mhe["module"].collect_variables_for_optimization()
+    now = float(mhe["module"].env.now)
+    warm_ms = float(np.median([r["ms"] for r in mhe["solves"][1:]]))
+    phase_profile(torch, lambda: mhe_backend.solve(now, variables), warm_ms,
+                  name="module_mhe_profile")
+    return run["totals"]
+
+
+def minlp_metrics(rows):
+    """The example's printout: final zone temperature and the chiller's
+    duty cycle over the plant's rows, and whether every command was
+    binary."""
+    on = np.array([r["on"] for r in rows], dtype=float)
+    return (float(rows[-1]["T_out"]), float(on.mean()),
+            bool(set(np.unique(on)) <= {0.0, 1.0}))
+
+
+def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
+    """examples/minlp_switched_room.py's agent (``minlp_mpc`` over
+    ``jax_cia`` or ``jax_minlp_bb``) through LocalMAS on the card in f64:
+    the relaxed program on the QP fast path (1, 34), the schedule on the
+    host (native CIA or the tree search, whose node relaxations run as one
+    batched NLP per sweep at (8, 34)), the fixed program (1, 26)."""
+    from agentlib_mpc_torch import reference_configs as rc
+    from agentlib_mpc_torch.ops import cia, kkt
+
+    bb = backend_type == "jax_minlp_bb"
+    name = "module_minlp_bb" if bb else "module_minlp_cia"
+    until = MINLP_BB_UNTIL if bb else MINLP_CIA_UNTIL
+    calls = []   # per exact (fixed) solve and per node sweep, on the card
+    mirror_calls = [0]
+
+    def instrument(mas):
+        backend = mas.agents["Controller"].get_module("mpc").backend
+
+        def counted(kind, fn):
+            def wrapper(*args):
+                before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+                out = fn(*args)
+                stats = out[-1]
+                calls.append({
+                    "kind": kind,
+                    "factor": kkt.ldl_factor.launches - before[0],
+                    "solve": kkt.ldl_solve.launches - before[1],
+                    "iterations": int(stats.iterations.max()),
+                    "success": bool(stats.success.all())})
+                return out
+            return wrapper
+
+        backend._solve_fixed = counted("fixed", backend._solve_fixed)
+        if bb:
+            backend._solve_nodes = counted("nodes", backend._solve_nodes)
+
+    python_cia = cia._solve_python
+
+    def mirror(*args, **kwargs):
+        mirror_calls[0] += 1
+        return python_cia(*args, **kwargs)
+
+    cia._solve_python = mirror
+    native_before = cia.solve_cia.native_calls
+    try:
+        run = drive_mas(torch, rc.minlp_switched_room_configs(
+            backend_type=backend_type), dev, torch.float64, until,
+            ("Controller", "mpc"), ("Plant", "room"), count_launches=True,
+            instrument=instrument)
+    finally:
+        cia._solve_python = python_cia
+    native_runs = cia.solve_cia.native_calls - native_before
+    backend = run["mpc"].backend
+    sizes = {"relaxed": backend.ocp.n_w + backend.ocp.n_g,
+             "fixed": backend.ocp_fixed.n_w + backend.ocp_fixed.n_g}
+    t_final, duty, binary = minlp_metrics(run["rows"])
+    stats = [r["stats"] for r in run["solves"]]
+    record = {"phase": name, "dtype": "float64", "backend": backend_type,
+              "kkt_size": sizes, "horizon": backend.N, "until_s": until,
+              "qp_fast_path": backend.uses_qp_fast_path,
+              **module_summary(run), "launches": run["totals"],
+              "relaxed_iterations": [s["relaxed_iterations"] for s in stats],
+              "fixed_iterations": [s["fixed_iterations"] for s in stats],
+              "final_zone_temperature_K": t_final, "duty_cycle": duty,
+              "on_binary": binary, "cia_native_runs": native_runs,
+              "cia_python_runs": mirror_calls[0],
+              "guard_level_max": max(r.get("guard_level", -1)
+                                     for r in run["solves"]),
+              "warm_start_resets": backend.warm_start_resets,
+              "nvidia_smi": smi}
+    if bb:
+        record.update(
+            bb_nodes=[s["bb_nodes"] for s in stats],
+            bb_sweeps=[s["bb_sweeps"] for s in stats],
+            bb_proven_optimal=[bool(s["bb_proven_optimal"]) for s in stats],
+            bb_improved_on_heuristic=[bool(s["bb_improved_on_heuristic"])
+                                      for s in stats],
+            bb_incumbent=[s["bb_incumbent"] for s in stats],
+            bb_heuristic=[s["bb_heuristic"] for s in stats],
+            exact_solves=sum(c["kind"] == "fixed" for c in calls))
+    else:
+        t64, duty64, _ = minlp_metrics(ref["rows"])
+        record.update(f64_cpu_final_zone_temperature_K=t64,
+                      f64_cpu_duty_cycle=duty64,
+                      f64_cpu_run_seconds=ref["wall_s"],
+                      f64_cpu_all_success=all(r["success"]
+                                              for r in ref["solves"]))
+    emit(record)
+    check(sizes == {"relaxed": 34, "fixed": 26},
+          f"{name}: KKT sizes {sizes}, expected relaxed 34 and fixed 26")
+    check(backend.uses_qp_fast_path,
+          f"{name}: the relaxed OCP did not route to the QP fast path")
+    for k, row in enumerate(run["solves"]):
+        s = row["stats"]
+        check(row["success"] and s["relaxed_success"]
+              and row.get("guard_level") == 0,
+              f"{name} solve {k}: success {row['success']}, relaxed "
+              f"{s['relaxed_success']}, guard level {row.get('guard_level')}")
+    check(backend.warm_start_resets == 0, f"{name}: a warm start was reset")
+    # per solve: the relaxed QP (1 factor, 6 solves per QP iteration), then
+    # every fixed NLP and node sweep (1 factor and per_factor solves per
+    # iteration; a sweep iterates as long as its slowest lane)
+    per_nlp = per_factor(backend)
+    for c in calls:
+        check(c["factor"] == c["iterations"]
+              and c["solve"] == per_nlp * c["iterations"],
+              f"{name}: {c['kind']} solve launched {c['factor']} factor / "
+              f"{c['solve']} solve for {c['iterations']} iterations")
+    factor_calls = sum(c["factor"] for c in calls)
+    solve_calls = sum(c["solve"] for c in calls)
+    rel_it = sum(s["relaxed_iterations"] for s in stats)
+    factor_all = sum(r["factor"] for r in run["solves"])
+    solve_all = sum(r["solve"] for r in run["solves"])
+    check(factor_all == factor_calls + rel_it
+          and solve_all == solve_calls + 6 * rel_it,
+          f"{name}: {factor_all} factor / {solve_all} solve launches, "
+          f"expected {factor_calls + rel_it} / {solve_calls + 6 * rel_it}")
+    check_shapes_f64(name, run["totals"],
+                     [(1, 34), (1, 26)] + ([(8, 34)] if bb else []))
+    check(binary, f"{name}: an actuated chiller command was not binary")
+    check(t_final < rc.MINLP_UB + MINLP_UB_MARGIN_K,
+          f"{name}: the zone ended at {t_final} K")
+    check(0.0 < duty < 1.0, f"{name}: duty cycle {duty}")
+    check(mirror_calls[0] == 0,
+          f"{name}: the Python CIA ran {mirror_calls[0]} times")
+    if bb:
+        for k, s in enumerate(stats):
+            check(s["bb_incumbent"] <= s["bb_heuristic"],
+                  f"{name} solve {k}: incumbent {s['bb_incumbent']} above "
+                  f"the heuristic's {s['bb_heuristic']}")
+        check(any(c["kind"] == "nodes" for c in calls),
+              f"{name}: no node sweep ran")
+    else:
+        check(native_runs == len(run["solves"]),
+              f"{name}: the native CIA ran {native_runs} times for "
+              f"{len(run['solves'])} solves")
+        check(record["f64_cpu_all_success"],
+              f"{name}: the f64 CPU reference failed a solve")
+        check(abs(t_final - record["f64_cpu_final_zone_temperature_K"])
+              <= MINLP_CIA_T_TOL_K
+              and abs(duty - record["f64_cpu_duty_cycle"])
+              <= MINLP_CIA_DUTY_TOL,
+              f"{name}: {t_final} K / duty {duty} against f64 CPU "
+              f"{record['f64_cpu_final_zone_temperature_K']} K / "
+              f"{record['f64_cpu_duty_cycle']}")
+    # no profiled solve: a MINLP solve launches ~40 000 (CIA) to ~300 000
+    # (B&B) device ops, which the profiler takes minutes to read back
+    return run["totals"]
+
+
 def main() -> int:
     import torch
 
+    # ``--cpu-reference NAME``: one module phase's f64 CPU reference, one
+    # JSON line (the subprocesses of :class:`References`)
+    if "--cpu-reference" in sys.argv:
+        torch.set_num_threads(1)
+        name = sys.argv[sys.argv.index("--cpu-reference") + 1]
+        print(json.dumps(reference_run(name), default=float), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -2104,6 +2547,18 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     seconds: dict = {}
+    # the f64 CPU references of the module phases run in subprocesses from
+    # the start, beside the card's phases
+    refs = References(list(reference_specs()))
+    try:
+        return run_phases(torch, dev, refs, seconds, t_start)
+    finally:
+        refs.close()
+
+
+def run_phases(torch, dev, refs, seconds, t_start) -> int:
+    """Every phase in order, each timed into ``seconds``; the result lines
+    last."""
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -2135,10 +2590,20 @@ def main() -> int:
                                     smi, "linear")
     by_path["fused_fleet"] = timed("fused_fleet", phase_fused_fleet, torch,
                                    dev, smi)
-    by_path["module_one_room"] = timed("module_one_room",
-                                       phase_module_one_room, torch, dev, smi)
+    by_path["module_one_room"] = timed(
+        "module_one_room", phase_module_one_room, torch, dev, smi,
+        refs.get("module_one_room"))
     by_path["module_linear_qp"] = timed(
-        "module_linear_qp", phase_module_linear_qp, torch, dev, smi)
+        "module_linear_qp", phase_module_linear_qp, torch, dev, smi,
+        refs.get("module_linear_qp"))
+    by_path["module_mhe"] = timed("module_mhe", phase_module_mhe, torch,
+                                  dev, smi, refs.get("module_mhe"))
+    by_path["module_minlp_cia"] = timed(
+        "module_minlp_cia", phase_module_minlp, torch, dev, smi, "jax_cia",
+        refs.get("module_minlp_cia"))
+    by_path["module_minlp_bb"] = timed(
+        "module_minlp_bb", phase_module_minlp, torch, dev, smi,
+        "jax_minlp_bb")
     new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,
                        by_path)
     for k in kernels:
