@@ -28,7 +28,8 @@ non-zero without printing a result:
    profile  — one more warm step under ``torch.profiler``: device time
               by operator, the card's busy share of the step, host time.
 5. quality  — the same steps through the port in f64 with the plain
-              versions on the CPU; the card's z̄ and consensus spread must
+              versions on the CPU (computed in a subprocess from the
+              script's start); the card's z̄ and consensus spread must
               agree within the stated tolerance.
 6. stage_kernels — both kernels against their plain versions (bitwise) at
               the stage sweep's shapes: factor (256, 10) and (256, 5), solve
@@ -37,7 +38,7 @@ non-zero without printing a result:
               library yardstick at each.
 7. long_horizon — the 256-zone step a day ahead (N=96, dt=900 s, KKT
               866 of 97 stages of 10), "auto" routed to the stage sweep:
-              one cold and two warm steps in f32 with the launch counters
+              one cold and one warm step in f32 with the launch counters
               reset just before and read just after (launches must equal
               97 factor and 1 254 solve launches per interior-point
               iteration), a profiled warm step, then the quality gate: the
@@ -203,6 +204,9 @@ SPREAD_TOL = 2e-3
 #: time): with three, the whole script took 1 329 s on an H100 at 700 W,
 #: over the 1 200 s it may take
 N_WARM = 2
+#: warm steps of the day-ahead paths (long_horizon with its two LU
+#: references, qp_day_ahead, sparse_day_ahead): one, for the same limit
+LONG_N_WARM = 1
 #: the stage sweep's kernel shapes (B, M): the factor of the stage blocks
 #: of 256 zones (collocation blocks of 10, shooting blocks of 5); the solve
 #: of ldl_solve_many's right-hand sides (10 per block of 10, 5 per block
@@ -695,15 +699,15 @@ def phase_kernels(torch, dev):
     ]
 
 
-def run_steps(torch, step, args, sync):
-    """One cold step and N_WARM warm steps; per-step wall ms, outputs,
+def run_steps(torch, step, args, sync, n_warm=N_WARM):
+    """One cold step and ``n_warm`` warm steps; per-step wall ms, outputs,
     stats and (on the card) per-step kernel launches."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.parallel.admm_step import warm_step
 
     outs, ms, launches = [], [], []
     out = None
-    for k in range(1 + N_WARM):
+    for k in range(1 + n_warm):
         before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
         t0 = time.perf_counter()
         out = step(*args) if out is None else warm_step(step, args, out[0])
@@ -816,18 +820,25 @@ def phase_profile(torch, run, warm_ms, name="profile"):
     return record
 
 
-def phase_quality(torch, outs32, ocp):
+def slice_reference(torch) -> dict:
+    """The slice's steps in f64 with the plain versions on the CPU: the
+    carried state of every step, as lists, and the seconds they took."""
     from agentlib_mpc_torch.parallel.admm_step import N_AGENTS, build_step
 
     step, args = build_step(N_AGENTS, {"kkt_method": "ldl"}, device="cpu",
                             dtype=torch.float64, record_stats=True)
     t0 = time.perf_counter()
     outs64, _, _ = run_steps(torch, step, args, lambda: None)
-    seconds = time.perf_counter() - t0
+    return {"seconds": time.perf_counter() - t0,
+            "carries": [[t.tolist() for t in o[0]] for o in outs64]}
+
+
+def phase_quality(torch, outs32, ocp, ref):
+    seconds = ref["seconds"]
     rows = []
-    for k, (o32, o64) in enumerate(zip(outs32, outs64)):
+    for k, (o32, carry64) in enumerate(zip(outs32, ref["carries"])):
         c32 = tuple(t.double().cpu() for t in o32[0])
-        c64 = o64[0]
+        c64 = tuple(torch.tensor(t, dtype=torch.float64) for t in carry64)
         check(all(bool(torch.isfinite(t).all()) for t in c64),
               f"non-finite f64 reference output at step {k}")
         dz = float((c32[3] - c64[3]).abs().max())
@@ -922,7 +933,8 @@ def phase_long_horizon(torch, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
+                                   LONG_N_WARM)
     totals = launch_totals(kkt)
     copied = kkt.ldl_solve_many.copied_bytes
     peak = torch.cuda.max_memory_allocated(dev)
@@ -976,7 +988,7 @@ def phase_long_horizon(torch, dev, smi):
                                     dt=LONG_DT)
         t0 = time.perf_counter()
         refs[name], _, _ = run_steps(torch, step_r, args_r,
-                                     torch.cuda.synchronize)
+                                     torch.cuda.synchronize, LONG_N_WARM)
         seconds[name] = time.perf_counter() - t0
     rows = []
     for k, (o32, o64, olu) in enumerate(zip(outs, refs["f64"],
@@ -1398,7 +1410,8 @@ def phase_qp_day_ahead(torch, dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
+                                   LONG_N_WARM)
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     # the banded sweep: S factors and S-1 many-rhs solves, then two
@@ -1426,7 +1439,8 @@ def phase_qp_day_ahead(torch, dev, smi):
                                 record_stats=True, horizon=LONG_N,
                                 dt=LONG_DT, model="linear", inner="qp")
     t0 = time.perf_counter()
-    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize)
+    outs64, _, _ = run_steps(torch, step64, args64, torch.cuda.synchronize,
+                             LONG_N_WARM)
     seconds64 = time.perf_counter() - t0
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
     rows = linear_quality_rows(torch, ocp, outs, outs64)
@@ -1457,7 +1471,8 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
-    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize)
+    outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
+                                   LONG_N_WARM)
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = check_launches_per_iteration(
@@ -2105,8 +2120,11 @@ def reference_run(name: str) -> dict:
     """One module phase's loop in f64 on the CPU with the plain LDLᵀ, as
     plain data: the simulator's rows, per solve its row (success,
     iterations, u0, ms, stats), the wall times, and the values the phase
-    reads off the finished loop."""
+    reads off the finished loop (``"quality"``: the slice's steps)."""
     import torch
+
+    if name == "quality":
+        return slice_reference(torch)
 
     configs, mpc_at, sim_at, extra_at, until = reference_specs()[name]
     run = drive_mas(torch, configs(), "cpu", torch.float64, until, mpc_at,
@@ -2549,7 +2567,7 @@ def main() -> int:
     seconds: dict = {}
     # the f64 CPU references of the module phases run in subprocesses from
     # the start, beside the card's phases
-    refs = References(list(reference_specs()))
+    refs = References(["quality", *reference_specs()])
     try:
         return run_phases(torch, dev, refs, seconds, t_start)
     finally:
@@ -2570,7 +2588,7 @@ def run_phases(torch, dev, refs, seconds, t_start) -> int:
     timed("build", phase_build)
     kernels = timed("kernels", phase_kernels, torch, dev)
     outs, slice_totals, ocp = timed("slice", phase_slice, torch, dev)
-    timed("quality", phase_quality, torch, outs, ocp)
+    timed("quality", phase_quality, torch, outs, ocp, refs.get("quality"))
     stage_rows = timed("stage_kernels", phase_stage_kernels, torch, dev)
     lh_totals, lh = timed("long_horizon", phase_long_horizon, torch, dev,
                           smi)
