@@ -20,8 +20,7 @@
   (``max_switches`` 6) or ``jax_minlp_bb`` (``max_nodes`` 48,
   ``batch_pairs`` 4) on the ``SwitchedRoom`` zoo model (multiple
   shooting, N=8, a step every 300 s) and its plant;
-- :func:`switched_room_backend_config` and
-  :data:`SWITCHED_ROOM_ROLES`: the backend configs and variable roles of
+- :func:`switched_room_backend_config`: the backend configs of
   ``tests/test_minlp.py``.
 
 Each takes a ``solver`` dict merged over its solver options (for example
@@ -357,10 +356,6 @@ def mhe_estimator_configs(solver: dict | None = None):
 #: examples/minlp_switched_room.py: controller step (s), start temperature
 #: and comfort bound (K)
 MINLP_DT, MINLP_START, MINLP_UB = 300.0, 297.15, 295.15
-#: tests/test_minlp.py's variable roles of the SwitchedRoom backends
-SWITCHED_ROOM_ROLES = {"states": ["T"], "binary_controls": ["on"],
-                       "inputs": ["load", "T_upper"],
-                       "parameters": ["C", "Q_cool", "s_T", "r_on"]}
 
 
 def switched_room_backend_config(backend_type: str = "jax_cia",

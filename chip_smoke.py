@@ -2468,6 +2468,13 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
                                      for r in run["solves"]),
               "warm_start_resets": backend.warm_start_resets,
               "nvidia_smi": smi}
+    rel_it = sum(s["relaxed_iterations"] for s in stats)
+    record["launches_by_program"] = {
+        "relaxed": [rel_it, 6 * rel_it],
+        **{kind: [sum(c["factor"] for c in calls if c["kind"] == kind),
+                  sum(c["solve"] for c in calls if c["kind"] == kind)]
+           for kind in ("fixed", "nodes") if any(c["kind"] == kind
+                                                  for c in calls)}}
     if bb:
         record.update(
             bb_nodes=[s["bb_nodes"] for s in stats],
@@ -2508,7 +2515,6 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
               f"{c['solve']} solve for {c['iterations']} iterations")
     factor_calls = sum(c["factor"] for c in calls)
     solve_calls = sum(c["solve"] for c in calls)
-    rel_it = sum(s["relaxed_iterations"] for s in stats)
     factor_all = sum(r["factor"] for r in run["solves"])
     solve_all = sum(r["solve"] for r in run["solves"])
     check(factor_all == factor_calls + rel_it

@@ -7,7 +7,7 @@
   ``objective_term_names``);
 * ``examples/mhe_one_room.py``'s two agents (an ``mhe`` module beside an
   ``mpc`` that consumes its load estimate, and the plant) in closed loop
-  for 600 s in both packages (``agentlib_mpc_torch/reference_configs.py``,
+  for 480 s in both packages (``agentlib_mpc_torch/reference_configs.py``,
   the plain LDLᵀ in both): per solve the MHE's estimates and iterations,
   the MPC's u0, objective and iterations, and the plant's rows within 1e-8
   relative;
@@ -40,8 +40,8 @@ from agentlib_mpc_tpu.backends.mhe_backend import (
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
 
 F64 = torch.float64
-#: the closed loop: six MHE and MPC solves (every 120 s) and 11 plant steps
-UNTIL = 600.0
+#: the closed loop: five MHE and MPC solves (every 120 s) and 9 plant steps
+UNTIL = 480.0
 #: loop parity, relative
 RTOL = 1e-8
 #: the MHE QP's objective, absolute: the QP path evaluates it as a
@@ -180,7 +180,7 @@ def _close(port, ref, what, rtol=RTOL):
 def test_example_loop_matches_jax_step_by_step(loops):
     port, ref = loops["port"], loops["jax"]
     for kind in ("mhe_solves", "mpc_solves"):
-        assert len(port[kind]) == len(ref[kind]) == 6
+        assert len(port[kind]) == len(ref[kind]) == 5
         for p, r in zip(port[kind], ref[kind]):
             assert p["time"] == r["time"]
             for key in ("iterations", "success", "kkt_path"):

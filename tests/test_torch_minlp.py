@@ -8,7 +8,7 @@
 * the library is built from the repository's source into ``_build/`` and
   a failed build raises: nothing falls back to the Python version;
 * ``examples/minlp_switched_room.py``'s ``jax_cia`` agent in closed loop
-  for 900 s (four controller steps, 16 plant steps) in both packages
+  for 600 s (three controller steps, 11 plant steps) in both packages
   (``agentlib_mpc_torch/reference_configs.py``, the plain LDLᵀ in both):
   per step the binary schedule, u0, the relaxed and fixed iterations and
   objectives, and the plant's rows within 1e-8 relative; then one
@@ -47,8 +47,8 @@ from agentlib_mpc_tpu.ops import cia as jcia
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
 
 F64 = torch.float64
-#: the closed loop: length (s), four controller steps at 300 s
-UNTIL = 900.0
+#: the closed loop: length (s), three controller steps at 300 s
+UNTIL = 600.0
 #: loop parity, relative (both run the same f64 arithmetic but for the
 #: order of some sums)
 RTOL = 1e-8
@@ -224,7 +224,7 @@ def _close(port, ref, what, rtol=RTOL):
 def test_cia_loop_matches_jax_step_by_step(cia_loops):
     port, ref = cia_loops["port"], cia_loops["jax"]
     assert port["module"].backend.uses_qp_fast_path is True
-    assert len(port["solves"]) == len(ref["solves"]) == 4
+    assert len(port["solves"]) == len(ref["solves"]) == 3
     for p, r in zip(port["solves"], ref["solves"]):
         assert p["time"] == r["time"]
         for key in ("iterations", "success", "relaxed_success"):
@@ -354,13 +354,17 @@ def test_bb_solve_matches_jax(bb_solves):
 
 def test_bb_batched_nodes_equal_their_single_solves(bb_solves):
     """The port's node program (one ``solve_nlp_batched`` of the padded
-    batch of 8) against two of its nodes solved alone by ``solve_nlp``."""
+    batch of 8: the root's two children, then copies of the first) against
+    the two children solved alone by ``solve_nlp``; the padding lanes
+    repeat the first child's result."""
     port = bb_solves["port"]
     node_bounds, ctx, u_batch, stats = bb_solves["sweeps"][0]
     assert u_batch.shape[0] == 2 * BB_OPTIONS["batch_pairs"]
+    for i in range(2, u_batch.shape[0]):
+        torch.testing.assert_close(u_batch[i], u_batch[0], rtol=0, atol=0)
     ocp = port.ocp
     lanes = port._node_thetas(node_bounds, ctx)
-    for i in (0, len(node_bounds) - 1):
+    for i in (0, 1):
         th = lanes[i]
         lb, ub = ocp.bounds(th)
         res = solve_nlp(ocp.nlp, ocp.initial_guess(th), th, lb, ub,
@@ -375,19 +379,6 @@ def test_bb_batched_nodes_equal_their_single_solves(bb_solves):
 
 
 # -- module-level checks, port only -----------------------------------------
-
-
-def test_lockout_bound_forces_the_schedule_off():
-    """tests/test_minlp.py's lock-out: a published ``on__ub = 0`` wins over
-    a hot room (the relaxed box carries it into the schedule)."""
-    backend = create_backend(rc.switched_room_backend_config(
-        "jax_cia", SOLVER, cia_options={"max_switches": 6}), device="cpu",
-        dtype=F64)
-    backend.setup_optimization(VariableReference(**rc.SWITCHED_ROOM_ROLES),
-                               time_step=rc.MINLP_DT, prediction_horizon=4)
-    result = backend.solve(900.0, {"T": 299.15, "on__ub": 0.0})
-    assert result["u0"]["on"] == 0.0
-    assert not result["binary_schedule"].any()
 
 
 def test_minlp_mpc_checks_its_config():
