@@ -207,7 +207,8 @@ class _IPState(NamedTuple):
     kkt0: torch.Tensor
     best_err: torch.Tensor
     stall: torch.Tensor
-    #: consecutive iterations whose line search accepted NO candidate
+    #: consecutive iterations whose line search made no Armijo progress
+    #: (no candidate accepted, or one accepted only within the noise)
     frozen: torch.Tensor
     # carried first-order information of the current iterate
     fv: torch.Tensor      # (B,) objective value
@@ -216,6 +217,13 @@ class _IPState(NamedTuple):
     Jg: torch.Tensor      # (B, m_e, n); banded rows (B, m_e, W_g) if sparse
     hv: torch.Tensor      # (B, m_h) inequality residuals
     Jh: torch.Tensor      # (B, m_h, n); banded rows (B, m_h, W_h) if sparse
+
+
+#: a callable that receives, per interior-point iteration, a dict of the
+#: line search's and the barrier update's tensors (one entry per lane);
+#: None (the default) records nothing. ``scripts/module_f32_witness.py``
+#: sets it to trace a solve.
+ITERATION_TRACE = None
 
 
 # ---- option resolution ------------------------------------------------------
@@ -822,14 +830,19 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
                            mu[:, None], nu[:, None])
         # finite-merit requirement: a singular/indefinite KKT solve yields
         # non-finite steps — those must reject so delta bumps
-        ok = (phis <= phi0[:, None] + opts.armijo_eta * alphas
-              * torch.clamp_max(dphi, 0.0)[:, None] + noise[:, None]) \
-            & torch.isfinite(phis)
+        armijo = phi0[:, None] + opts.armijo_eta * alphas \
+            * torch.clamp_max(dphi, 0.0)[:, None]
+        ok = (phis <= armijo + noise[:, None]) & torch.isfinite(phis)
         accepted = ok.any(dim=-1)
         first_ok = ok.to(torch.int8).argmax(dim=-1)  # alphas descend
         lanes = torch.arange(B, device=device)
         alpha = torch.where(accepted, alphas[lanes, first_ok],
                             torch.zeros_like(alpha_p))
+        # a step whose merit neither made the Armijo decrease nor fell by
+        # more than the noise allowance made no progress: it counts toward
+        # the wedged-search escape below like a rejected search
+        progressed = accepted & (phis[lanes, first_ok] <= torch.minimum(
+            armijo[lanes, first_ok], phi0 - noise))
         acc = accepted[:, None]
 
         # select (not multiply): 0 * nan would poison the rejected branch
@@ -872,10 +885,14 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
             gf_n, Jg_n, Jh_n, gv_n, hv_n, s_n, y_n, z_n, zL_n, zU_n, w_n, mu)
         err_0, viol_0, dual_0, compl_0 = kkt_error(
             gf_n, Jg_n, Jh_n, gv_n, hv_n, s_n, y_n, z_n, zL_n, zU_n, w_n, 0.0)
-        frozen_n = torch.where(accepted, torch.zeros_like(st.frozen),
+        frozen_n = torch.where(progressed, torch.zeros_like(st.frozen),
                                st.frozen + 1)
         # Fiacco–McCormick test plus the stall and wedged-search escapes
-        # (see the JAX package for the history of both)
+        # (see the JAX package for the history of both). The JAX package
+        # counts only rejected searches as wedged; in float32 the port's
+        # searches at the precision floor keep accepting merit rises
+        # within the noise allowance, which never shrank mu and burnt the
+        # budget (scripts/module_f32_witness.py, ``trace`` lines)
         kap_eps = opts.barrier_tol_factor
         shrink = (err_mu <= kap_eps * mu) | (
             (st.stall >= 2) & (viol_0 <= viol_tol)
@@ -897,6 +914,12 @@ def _solve_batched(nlp, w0, theta, w_lb, w_ub, opts, y0, z0, mu0_arg,
                       & (viol_0 <= viol_tol)
                       & (compl_0 <= opts.compl_inf_tol))
         done = (err_0 <= opts.tol) | acceptable
+        if ITERATION_TRACE is not None:
+            ITERATION_TRACE(dict(
+                it=st.it, mu=mu, alpha=alpha, phi0=phi0, phis=phis,
+                first_ok=first_ok, noise=noise, accepted=accepted,
+                progressed=progressed, frozen=frozen_n, stall=stall_n,
+                err_0=err_0))
         return _IPState(w=w_n, s=s_n, y=y_n, z=z_n, zL=zL_n, zU=zU_n,
                         mu=mu_n, delta=delta_n, it=st.it + 1, done=done,
                         kkt0=err_0, best_err=best_n, stall=stall_n,

@@ -122,15 +122,19 @@ non-zero without printing a result:
               breaks down on this QP in both packages:
               ``scripts/linear_qp_f32_witness.py``.)
 17. module_mhe — ``examples/mhe_one_room.py``'s two agents for 3 600 s
-              in f64 on the card (the float64 kernels): the ``mhe`` module
-              (``jax_mhe``, horizon 10, its estimation OCP certified LQ:
-              the QP fast path at (1, 142), one factor and six solves per
-              QP iteration) beside an ``mpc`` that consumes its load
-              estimate (NLP at (1, 92), one factor and three solves per
-              iteration), the plant with the true 260 W; every solve
-              successful, the example's gates (estimate within 40 W of
-              260 W, the room 1 K below its start), the final estimate
-              within 1 % of the same loop in f64 on the CPU.
+              in f32 on the card (the module path's default): the
+              ``mhe`` module (``jax_mhe``, horizon 10, its estimation OCP
+              certified LQ: the QP fast path at (1, 142), one factor and
+              six solves per QP iteration) beside an ``mpc`` that
+              consumes its load estimate (NLP at (1, 92), one factor and
+              three solves per iteration), the plant with the true 260 W;
+              every solve successful, the example's gates (estimate
+              within 40 W of 260 W, the room 1 K below its start), the
+              final estimate within 1 % of the same loop in f64 on the
+              CPU. (Until the
+              port's solver counted steps taken only inside the line
+              search's noise allowance as no progress, its MPC failed 3
+              of 31 solves here in f32: ``scripts/module_f32_witness.py``.)
 18. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
               agent for 7 200 s in f64: the relaxed program on the QP at
               (1, 34), the CIA schedule from the native library
@@ -138,7 +142,11 @@ non-zero without printing a result:
               program at (1, 26); launches exact per solve; the example's
               gates (binary commands, the zone below UB + 0.5 K, a duty
               cycle inside (0, 1)); final temperature within 0.05 K and
-              duty within 0.02 of the same loop in f64 on the CPU.
+              duty within 0.02 of the same loop in f64 on the CPU; after
+              the next phase, every card solve replayed on the CPU in f64
+              from the same inputs and warm state (a subprocess): the same
+              command and relaxed-QP iterations, the relaxed trajectory
+              within 1e-6 K.
 19. module_minlp_bb — the same agent on ``jax_minlp_bb`` (max_nodes 48,
               batch_pairs 4) for 2 100 s in f64: node relaxations as one
               batched NLP per sweep at (8, 34), exact launches per fixed
@@ -154,7 +162,10 @@ non-zero without printing a result:
 
 The module phases' f64 CPU references run in subprocesses of this script
 (``--cpu-reference NAME``) started at the beginning, beside the card's
-phases, and are ended with the script. Then the run's wall time, the
+phases, and are ended with the script; they and the CIA replay
+(``--cpu-replay NAME``) run on the last five of the cores this process
+may use, the card's process on the others (where there are eight or
+more; the ``summary`` line names them). Then the run's wall time, the
 ``nvidia-smi`` line, the ``kernels`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero when
 ``torch.cuda.is_available()`` is False. Imports nothing of JAX, of the JAX
@@ -165,6 +176,8 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import pickle
 import subprocess
 import sys
 import time
@@ -231,9 +244,12 @@ SHOOT_INTEGRATOR, SHOOT_SUBSTEPS, SHOOT_MAX_ITER = "rk4", 3, 50
 #: f32 vs f64 of the shooting solve's first controls (range 0..0.05 m³/s)
 #: on the lanes both runs solve to tol 1e-4 (some zones of this fleet do
 #: not converge within the budget in either precision; their iterates are
-#: compared by nothing but finiteness), the share of solved lanes, and
-#: the plant step's temperatures (K, about 300): 10 rk4 sub-steps in f32
-#: at 300 K carry eps 6e-8 × 300 × 10 ≈ 2e-4 K
+#: compared by nothing but finiteness), the share of the fleet that f64
+#: solves and f32 does not, and the plant step's temperatures (K, about
+#: 300): 10 rk4 sub-steps in f32 at 300 K carry eps 6e-8 × 300 × 10 ≈
+#: 2e-4 K. f32 may solve lanes f64 does not: its stall exit accepts
+#: points at its precision floor, and the JAX package's f32 solves 72 % of
+#: a 32-zone fleet where its f64 solves 47 % (scripts/shooting_f32_share.py)
 SHOOT_U0_TOL = 1e-3
 SHOOT_SUCCESS_SHARE_TOL = 0.05
 PLANT_X_TOL = 1e-3
@@ -341,13 +357,12 @@ LINEAR_QP_T_LIMIT = 295.25
 LINEAR_QP_U0_TOL_W = 1e-6
 
 #: moving-horizon estimation and mixed-integer MPC on the module path, over
-#: the reference's examples (agentlib_mpc_torch/reference_configs.py), all
-#: three in float64 on the card (the kernels' float64 instantiations): the
-#: JAX package's own float32 loops fail solves of both MINLP examples on
-#: its CPU (CIA 1 of 25, branch-and-bound 2 of 25), and the port's float32
-#: NLP fails 3 of 31 solves of the MHE example's MPC where the JAX
-#: package's float32 succeeds only through its acceptable-exit path
-#: (PERF.md; scripts/module_f32_witness.py)
+#: the reference's examples (agentlib_mpc_torch/reference_configs.py): the
+#: MHE example in float32, the module path's default, and the two MINLP
+#: phases in float64 on the card (the kernels' float64 instantiations):
+#: the JAX package's own float32 loops fail solves of both MINLP examples
+#: on its CPU (CIA 1 of 25, branch-and-bound 2 of 25;
+#: scripts/module_f32_witness.py)
 #:
 #: examples/mhe_one_room.py's two agents (MHE beside MPC, the plant with
 #: the true load) for the example's whole run, and its gates: the estimate
@@ -366,6 +381,15 @@ MINLP_UB_MARGIN_K = 0.5
 MINLP_CIA_UNTIL = 7200.0
 MINLP_CIA_T_TOL_K = 0.05
 MINLP_CIA_DUTY_TOL = 0.02
+#: each solve of the card's f64 CIA loop replayed on the CPU in f64 (plain
+#: LDLᵀ) from the same inputs and warm state: the same command and
+#: relaxed-QP iterations, and the relaxed state trajectory within 1e-6 K
+#: (the two differ only by the order of f64 sums, as on the linear-QP
+#: loop). The fixed program is reported, not gated: its optimum is flat,
+#: and from the loop's state at t = 3 900 s starts 1e-10 apart stop at
+#: iterations 15 to 17 with objectives 3e-4 apart in both packages
+#: (scripts/module_f32_witness.py, ``fixed_3900``)
+MINLP_CIA_REPLAY_TOL_K = 1e-6
 #: the jax_minlp_bb agent at the example's width (N=8, max_nodes 48,
 #: batch_pairs 4), cut in depth to 2 100 s (8 controller steps): the
 #: example's controller keeps the chiller on until it has cooled the zone
@@ -781,41 +805,49 @@ def phase_profile(torch, run, warm_ms, name="profile"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
 
-    # device time from the kernel and copy events themselves (the aten
-    # rows above them carry the same time again); the solver's named
-    # ranges also appear on the device timeline and are skipped
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith(("ipm.", "admm."))]
+    # straight from the profiler's raw events: building its event tree
+    # (``prof.events()``, ``key_averages()``) takes about a minute for the
+    # ~500 000 events of a day-ahead step. Device time from the kernel and
+    # copy events themselves; the solver's and the fused engine's named
+    # ranges (also on the device timeline, skipped there) give inclusive
+    # host time; the other host events their inclusive time per name
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     by_name: dict = {}
-    for e in dev_events:
-        count, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    phases: dict = {}
+    host: dict = {}
+    n_dev = 0
+    for e in prof.profiler.kineto_results.events():
+        event_name = e.name()
+        ranged = event_name.startswith(("ipm.", "admm."))
+        kind = e.device_type()
+        if kind == cuda and not ranged:
+            table = by_name
+            n_dev += 1
+        elif kind == cpu:
+            table = phases if ranged else host
+        else:
+            continue
+        duration = getattr(e, "duration_ns", None)
+        count, us = table.get(event_name, (0, 0.0))
+        table[event_name] = (count + 1, us + (
+            duration() / 1e3 if duration else e.duration_us()))
     device_ms = sum(us for _, us in by_name.values()) / 1e3
     top_dev = sorted(by_name.items(), key=lambda kv: kv[1][1],
                      reverse=True)[:10]
-    # the solver's and the fused engine's named ranges: inclusive host
-    # time, from the host-side range events themselves
-    phases: dict = {}
-    for e in prof.events():
-        if e.name.startswith(("ipm.", "admm.")) and \
-                e.device_type == torch.autograd.DeviceType.CPU:
-            count, ms = phases.get(e.name, (0, 0.0))
-            phases[e.name] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
-    phases = {k: {"count": c, "host_ms": ms} for k, (c, ms) in phases.items()}
-    rows = prof.key_averages()
-    top_cpu = sorted(rows, key=lambda e: e.self_cpu_time_total,
-                     reverse=True)[:8]
+    top_host = sorted(host.items(), key=lambda kv: kv[1][1],
+                      reverse=True)[:8]
+    phases = {k: {"count": c, "host_ms": us / 1e3}
+              for k, (c, us) in phases.items()}
     record = {"phase": name, "profiled_step_ms": wall_ms,
           "device_ms": device_ms if device_ms > 0 else None,
-          "device_kernels": len(dev_events),
+          "device_kernels": n_dev,
           "busy_share_of_median_warm_step":
               device_ms / warm_ms if device_ms > 0 else None,
           "solver_phases": phases,
           "top_device_ms": [[name[:100], count, us / 1e3]
                             for name, (count, us) in top_dev],
-          "top_host_self_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3]
-                               for e in top_cpu]}
+          "top_host_ms": [[name, count, us / 1e3]
+                          for name, (count, us) in top_host]}
     emit(record)
     return record
 
@@ -1085,9 +1117,12 @@ def phase_shooting(torch, dev):
     solved = res.stats.success & res64.stats.success
     share32 = float(res.stats.success.double().mean())
     share64 = float(res64.stats.success.double().mean())
+    # lanes f64 solves and f32 does not, as a share of the fleet
+    lost = float((res64.stats.success & ~res.stats.success).double().mean())
     check(bool(solved.any()), "no lane solved in both precisions")
-    check(abs(share32 - share64) <= SHOOT_SUCCESS_SHARE_TOL,
-          f"solved share f32 {share32} vs f64 {share64}")
+    check(lost <= SHOOT_SUCCESS_SHARE_TOL,
+          f"f32 fails {lost} of the lanes f64 solves (solved shares: f32 "
+          f"{share32}, f64 {share64})")
     du0 = float((u0.double() - u0_64).abs()[solved].max())
     du0_all = float((u0.double() - u0_64).abs().max())
     check(du0 <= SHOOT_U0_TOL,
@@ -1115,6 +1150,9 @@ def phase_shooting(torch, dev):
           "ip_iterations_max": int(res.stats.iterations.max()),
           "lane_success_fraction": share32,
           "lane_success_fraction_f64": share64,
+          "lanes_solved_by_f64_only": lost,
+          "lanes_solved_by_f32_only": float(
+              (res.stats.success & ~res64.stats.success).double().mean()),
           "launches": totals, "u0_max_abs_diff_f64_solved": du0,
           "u0_max_abs_diff_f64_all_lanes": du0_all,
           "u0_tol": SHOOT_U0_TOL, "plant_x_max_abs_diff_f64": dx,
@@ -1975,7 +2013,8 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
                        "solve": kkt.ldl_solve.launches - before[1],
                        "u0": dict(result["u0"])})
         if capture:
-            solves[-1]["start"] = start
+            solves[-1].update(start=start, traj=result["traj"],
+                              traj_relaxed=result.get("traj_relaxed"))
         return result
 
     def timed_sim_step(*args):
@@ -2027,7 +2066,9 @@ def replay_solves(torch, configs, mpc_at, run):
         backend.set_warm_state(warm)
         result = backend.solve(now, variables)
         out.append({"iterations": int(result["stats"]["iterations"]),
-                    "u0": dict(result["u0"])})
+                    "u0": dict(result["u0"]), "stats": result["stats"],
+                    "traj": result["traj"],
+                    "traj_relaxed": result.get("traj_relaxed")})
     return out
 
 
@@ -2143,28 +2184,83 @@ def reference_run(name: str) -> dict:
     return out
 
 
+def replay_run(name: str, starts) -> dict:
+    """:func:`replay_solves` of the card solves ``starts`` (captured
+    inputs and warm states) of one module phase, as plain data: per solve
+    the iterations, u0, the relaxed and fixed iterations and the fixed
+    and relaxed state trajectories."""
+    import torch
+
+    configs, mpc_at = replay_specs()[name]
+    rows = replay_solves(torch, configs(), mpc_at,
+                         {"solves": [{"start": st} for st in starts]})
+    return {"rows": [{
+        "iterations": r["iterations"], "u0": r["u0"],
+        "relaxed_iterations": r["stats"].get("relaxed_iterations"),
+        "fixed_iterations": r["stats"].get("fixed_iterations"),
+        "x": np.asarray(r["traj"]["x"]).tolist(),
+        "x_relaxed": (None if r["traj_relaxed"] is None else
+                      np.asarray(r["traj_relaxed"]["x"]).tolist())}
+        for r in rows]}
+
+
+#: the phases whose card solves are replayed on the CPU in f64 in a
+#: subprocess (``--cpu-replay NAME``): (configs, mpc_at)
+def replay_specs():
+    from agentlib_mpc_torch import reference_configs as rc
+
+    return {"module_minlp_cia": (lambda: rc.minlp_switched_room_configs(
+        backend_type="jax_cia", solver={"kkt_method": "ldl"}),
+        ("Controller", "mpc"))}
+
+
+def split_cores():
+    """(cores of this process, cores of its CPU subprocesses): the last
+    five cores this process may use go to the subprocesses (the slice's
+    and the four module phases' references, one thread each) where at
+    least three stay for the card's host thread; else no split."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) >= 8:
+        return cores[:-5], cores[-5:]
+    return cores, cores
+
+
 class References:
     """The f64 CPU references of the module phases, each computed by a
     subprocess of this script (``--cpu-reference NAME``, one CPU thread)
-    started at once; :meth:`get` waits for one, :meth:`close` ends every
-    one still running."""
+    started at once, and the CPU replays of card solves
+    (``--cpu-replay NAME``, started by :meth:`replay`), all on the cores
+    ``cores``; :meth:`get` waits for one, :meth:`close` ends every one
+    still running."""
 
-    def __init__(self, names):
-        import os
+    def __init__(self, names, cores):
+        self.env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        self.cores = cores
+        self.procs = {name: self._start("--cpu-reference", name)
+                      for name in names}
 
-        env = {**os.environ, "OMP_NUM_THREADS": "1"}
-        self.procs = {
-            name: subprocess.Popen(
-                [sys.executable, __file__, "--cpu-reference", name],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=env)
-            for name in names}
+    def _start(self, flag: str, name: str, stdin=None):
+        cores = self.cores
+        return subprocess.Popen(
+            [sys.executable, __file__, flag, name], stdin=stdin,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=self.env, preexec_fn=lambda: os.sched_setaffinity(0, cores))
+
+    def replay(self, name: str, starts) -> None:
+        """Replay the card solves ``starts`` of phase ``name`` on the CPU
+        (:func:`replay_run`); :meth:`get` (``"replay:" + name``) waits."""
+        proc = self._start("--cpu-replay", name, stdin=subprocess.PIPE)
+        # the child's pickle.load stops at the pickle's end; communicate()
+        # in :meth:`get` closes the pipe
+        proc.stdin.buffer.write(pickle.dumps(starts))
+        proc.stdin.flush()
+        self.procs["replay:" + name] = proc
 
     def get(self, name: str) -> dict:
         out, err = self.procs[name].communicate()
         lines = [ln for ln in out.splitlines() if ln.startswith("{")]
         check(self.procs[name].returncode == 0 and bool(lines),
-              f"{name}: the f64 CPU reference failed:\n{err[-2000:]}")
+              f"{name}: the f64 CPU run failed:\n{err[-2000:]}")
         return json.loads(lines[-1])
 
     def close(self) -> None:
@@ -2302,14 +2398,16 @@ def check_solve_launches(name, rows, factor_per_it, solve_per_it):
               f"{factor_per_it}/{solve_per_it} per iteration)")
 
 
-def check_shapes_f64(name, totals, shapes):
-    """The kernels launched only at ``shapes``, only in float64."""
+def check_shapes(name, totals, shapes, dtype):
+    """The kernels launched only at ``shapes``, only in ``dtype``."""
+    want, other = (("shapes_f64", "shapes") if dtype == "float64"
+                   else ("shapes", "shapes_f64"))
     for kernel in ("ldl_factor", "ldl_solve"):
-        check(totals["shapes_f64"][kernel] == sorted(shapes)
-              and not totals["shapes"][kernel],
-              f"{name}: {kernel} launched at {totals['shapes_f64'][kernel]} "
-              f"(float64) and {totals['shapes'][kernel]} (float32), "
-              f"expected only {sorted(shapes)} in float64")
+        check(totals[want][kernel] == sorted(shapes)
+              and not totals[other][kernel],
+              f"{name}: {kernel} launched at {totals[want][kernel]} "
+              f"({dtype}) and {totals[other][kernel]} (other), expected "
+              f"only {sorted(shapes)} in {dtype}")
 
 
 def per_factor(backend) -> int:
@@ -2320,11 +2418,12 @@ def per_factor(backend) -> int:
 
 def phase_module_mhe(torch, dev, smi, ref):
     """examples/mhe_one_room.py's two agents through LocalMAS on the card
-    in f64: the MHE (QP fast path) and the MPC consuming its estimate,
-    held against the same MAS in f64 on the CPU with the plain LDLᵀ."""
+    in f32 (the module path's default): the MHE (QP fast path) and the MPC
+    consuming its estimate, held against the same MAS in f64 on the CPU
+    with the plain LDLᵀ."""
     from agentlib_mpc_torch import reference_configs as rc
 
-    run = drive_mas(torch, rc.mhe_one_room_configs(), dev, torch.float64,
+    run = drive_mas(torch, rc.mhe_one_room_configs(), dev, torch.float32,
                     MHE_UNTIL, ("Controller", "mpc"), ("Plant", "room"),
                     count_launches=True, extra_at=[("Controller", "mhe")])
     mhe = run["extra"]["Controller/mhe"]
@@ -2334,7 +2433,7 @@ def phase_module_mhe(torch, dev, smi, ref):
     load = float(mhe["module"].get_value("load"))
     load64 = ref["load"]
     temps = [r["T_out"] for r in run["rows"]]
-    emit({"phase": "module_mhe", "dtype": "float64",
+    emit({"phase": "module_mhe", "dtype": "float32",
           "kkt_size": sizes, "horizon": mhe_backend.N, "until_s": MHE_UNTIL,
           "qp_fast_path": {"mhe": mhe_backend.uses_qp_fast_path,
                            "mpc": mpc_backend.uses_qp_fast_path},
@@ -2370,7 +2469,8 @@ def phase_module_mhe(torch, dev, smi, ref):
     check_solve_launches("module_mhe (MHE)", mhe["solves"], 1, 6)
     check_solve_launches("module_mhe (MPC)", run["solves"], 1,
                          per_factor(mpc_backend))
-    check_shapes_f64("module_mhe", run["totals"], [(1, 142), (1, 92)])
+    check_shapes("module_mhe", run["totals"], [(1, 142), (1, 92)],
+                 "float32")
     check(all(r["success"] for r in ref["solves"]
               + ref["extra"]["Controller/mhe"]),
           "module_mhe: the f64 CPU reference failed a solve")
@@ -2411,7 +2511,6 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
     name = "module_minlp_bb" if bb else "module_minlp_cia"
     until = MINLP_BB_UNTIL if bb else MINLP_CIA_UNTIL
     calls = []   # per exact (fixed) solve and per node sweep, on the card
-    mirror_calls = [0]
 
     def instrument(mas):
         backend = mas.agents["Controller"].get_module("mpc").backend
@@ -2434,21 +2533,11 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
         if bb:
             backend._solve_nodes = counted("nodes", backend._solve_nodes)
 
-    python_cia = cia._solve_python
-
-    def mirror(*args, **kwargs):
-        mirror_calls[0] += 1
-        return python_cia(*args, **kwargs)
-
-    cia._solve_python = mirror
     native_before = cia.solve_cia.native_calls
-    try:
-        run = drive_mas(torch, rc.minlp_switched_room_configs(
-            backend_type=backend_type), dev, torch.float64, until,
-            ("Controller", "mpc"), ("Plant", "room"), count_launches=True,
-            instrument=instrument)
-    finally:
-        cia._solve_python = python_cia
+    run = drive_mas(torch, rc.minlp_switched_room_configs(
+        backend_type=backend_type), dev, torch.float64, until,
+        ("Controller", "mpc"), ("Plant", "room"), count_launches=True,
+        capture=not bb, instrument=instrument)
     native_runs = cia.solve_cia.native_calls - native_before
     backend = run["mpc"].backend
     sizes = {"relaxed": backend.ocp.n_w + backend.ocp.n_g,
@@ -2463,7 +2552,6 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
               "fixed_iterations": [s["fixed_iterations"] for s in stats],
               "final_zone_temperature_K": t_final, "duty_cycle": duty,
               "on_binary": binary, "cia_native_runs": native_runs,
-              "cia_python_runs": mirror_calls[0],
               "guard_level_max": max(r.get("guard_level", -1)
                                      for r in run["solves"]),
               "warm_start_resets": backend.warm_start_resets,
@@ -2521,14 +2609,12 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
           and solve_all == solve_calls + 6 * rel_it,
           f"{name}: {factor_all} factor / {solve_all} solve launches, "
           f"expected {factor_calls + rel_it} / {solve_calls + 6 * rel_it}")
-    check_shapes_f64(name, run["totals"],
-                     [(1, 34), (1, 26)] + ([(8, 34)] if bb else []))
+    check_shapes(name, run["totals"],
+                 [(1, 34), (1, 26)] + ([(8, 34)] if bb else []), "float64")
     check(binary, f"{name}: an actuated chiller command was not binary")
     check(t_final < rc.MINLP_UB + MINLP_UB_MARGIN_K,
           f"{name}: the zone ended at {t_final} K")
     check(0.0 < duty < 1.0, f"{name}: duty cycle {duty}")
-    check(mirror_calls[0] == 0,
-          f"{name}: the Python CIA ran {mirror_calls[0]} times")
     if bb:
         for k, s in enumerate(stats):
             check(s["bb_incumbent"] <= s["bb_heuristic"],
@@ -2551,7 +2637,46 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
               f"{record['f64_cpu_duty_cycle']}")
     # no profiled solve: a MINLP solve launches ~40 000 (CIA) to ~300 000
     # (B&B) device ops, which the profiler takes minutes to read back
-    return run["totals"]
+    return run["totals"], run
+
+
+def phase_cia_replay(run, rep):
+    """Every card solve of ``module_minlp_cia`` (f64) once more on the CPU
+    in f64 with the plain LDLᵀ, from the same inputs and warm state (a
+    subprocess, :meth:`References.replay`): the same actuated command, the
+    same relaxed-QP iterations and its state trajectory within
+    ``MINLP_CIA_REPLAY_TOL_K``; the fixed program's iterations and
+    trajectory are reported beside them."""
+    card, cpu = run["solves"], rep["rows"]
+    check(len(card) == len(cpu), "module_minlp_cia_replay: solve counts "
+          f"differ ({len(card)} on the card, {len(cpu)} replayed)")
+
+    def gap(key, cpu_key):
+        return [float(np.abs(np.asarray(a[key]["x"])
+                             - np.asarray(b[cpu_key])).max())
+                for a, b in zip(card, cpu)]
+
+    relaxed_gap, fixed_gap = gap("traj_relaxed", "x_relaxed"), gap(
+        "traj", "x")
+    u0_differ = [k for k, (a, b) in enumerate(zip(card, cpu))
+                 if a["u0"] != b["u0"]]
+    relaxed_it_differ = [
+        k for k, (a, b) in enumerate(zip(card, cpu))
+        if a["stats"]["relaxed_iterations"] != b["relaxed_iterations"]]
+    emit({"phase": "module_minlp_cia_replay", "solves": len(card),
+          "u0_differ": u0_differ, "relaxed_iterations_differ":
+          relaxed_it_differ,
+          "relaxed_x_max_abs_diff_K": max(relaxed_gap),
+          "relaxed_x_tol_K": MINLP_CIA_REPLAY_TOL_K,
+          "fixed_iterations_card": [a["stats"]["fixed_iterations"]
+                                    for a in card],
+          "fixed_iterations_cpu": [b["fixed_iterations"] for b in cpu],
+          "fixed_x_max_abs_diff_K": fixed_gap})
+    check(not u0_differ and not relaxed_it_differ
+          and max(relaxed_gap) <= MINLP_CIA_REPLAY_TOL_K,
+          f"module_minlp_cia_replay: the CPU's replay differs in u0 at "
+          f"{u0_differ}, in relaxed iterations at {relaxed_it_differ}, by "
+          f"{max(relaxed_gap)} K in the relaxed trajectory")
 
 
 def main() -> int:
@@ -2564,6 +2689,14 @@ def main() -> int:
         name = sys.argv[sys.argv.index("--cpu-reference") + 1]
         print(json.dumps(reference_run(name), default=float), flush=True)
         return 0
+    # ``--cpu-replay NAME``: card solves (pickled on stdin) replayed on the
+    # CPU, one JSON line (the subprocesses of :meth:`References.replay`)
+    if "--cpu-replay" in sys.argv:
+        torch.set_num_threads(1)
+        name = sys.argv[sys.argv.index("--cpu-replay") + 1]
+        print(json.dumps(replay_run(name, pickle.load(sys.stdin.buffer)),
+                         default=float), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -2572,15 +2705,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     seconds: dict = {}
     # the f64 CPU references of the module phases run in subprocesses from
-    # the start, beside the card's phases
-    refs = References(["quality", *reference_specs()])
+    # the start, beside the card's phases, on cores of their own
+    main_cores, ref_cores = split_cores()
+    os.sched_setaffinity(0, main_cores)
+    torch.set_num_threads(len(main_cores))
+    cores = {"card_process": main_cores, "cpu_subprocesses": ref_cores}
+    refs = References(["quality", *reference_specs()], ref_cores)
     try:
-        return run_phases(torch, dev, refs, seconds, t_start)
+        return run_phases(torch, dev, refs, seconds, t_start, cores)
     finally:
         refs.close()
 
 
-def run_phases(torch, dev, refs, seconds, t_start) -> int:
+def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
     """Every phase in order, each timed into ``seconds``; the result lines
     last."""
 
@@ -2622,12 +2759,16 @@ def run_phases(torch, dev, refs, seconds, t_start) -> int:
         refs.get("module_linear_qp"))
     by_path["module_mhe"] = timed("module_mhe", phase_module_mhe, torch,
                                   dev, smi, refs.get("module_mhe"))
-    by_path["module_minlp_cia"] = timed(
+    by_path["module_minlp_cia"], cia_run = timed(
         "module_minlp_cia", phase_module_minlp, torch, dev, smi, "jax_cia",
         refs.get("module_minlp_cia"))
-    by_path["module_minlp_bb"] = timed(
+    refs.replay("module_minlp_cia",
+                [row["start"] for row in cia_run["solves"]])
+    by_path["module_minlp_bb"], _ = timed(
         "module_minlp_bb", phase_module_minlp, torch, dev, smi,
         "jax_minlp_bb")
+    timed("module_minlp_cia_replay", phase_cia_replay, cia_run,
+          refs.get("replay:module_minlp_cia"))
     new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,
                        by_path)
     for k in kernels:
@@ -2639,7 +2780,7 @@ def run_phases(torch, dev, refs, seconds, t_start) -> int:
         k["stage_shapes"] = stage_rows[k["name"]]
         k["path_shapes"] = [r for r in new_shapes if r["kernel"] == k["name"]]
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
-          "phase_seconds": seconds,
+          "phase_seconds": seconds, "cores": cores,
           "device_ms_from_events": DEVICE_MS_FROM_EVENTS})
     print(smi, flush=True)
     emit({"kernels": kernels})

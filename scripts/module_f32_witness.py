@@ -2,28 +2,40 @@
 """Float32 and float64 on the MHE and MINLP examples, both packages, CPU.
 
     JAX_PLATFORMS=cpu python3 scripts/module_f32_witness.py [--out PATH]
+        [--fixture PATH]
 
-Why ``chip_smoke.py`` runs ``module_mhe``, ``module_minlp_cia`` and
-``module_minlp_bb`` in float64. Every loop runs on the CPU with the plain
-LDLᵀ in both packages (``kkt_method="ldl"``, the card's factor in the
-port), from ``agentlib_mpc_torch/reference_configs.py`` (the JAX package
-with its own model classes). One JSON line each:
+Which type each of ``chip_smoke.py``'s ``module_mhe`` (float32),
+``module_minlp_cia`` and ``module_minlp_bb`` (float64) runs in, and how
+the port's interior-point solver stalls where it did. Every loop runs on
+the CPU with the plain LDLᵀ in both packages (``kkt_method="ldl"``, the
+card's factor in the port), from ``agentlib_mpc_torch/reference_configs.py``
+(the JAX package with its own model classes). One JSON line each:
 
 - ``loop``: per example (``mhe``: examples/mhe_one_room.py, 3 600 s;
   ``cia``: examples/minlp_switched_room.py with ``jax_cia``, 7 200 s;
   ``bb``: the same with ``jax_minlp_bb``, 7 200 s in the JAX package and
   2 100 s in the port, whose B&B is slow on the CPU), package and type:
   the times of the failed solves (the MHE example: the MPC's and the
-  MHE's), iterations per solve, and the example's outcome.
+  MHE's), of the successful ones that stopped with a KKT error above 1e-3
+  (in float64 a wedged point the stall exit accepted; in float32 most
+  acceptable exits), iterations per solve, and the example's outcome.
 - ``replay``: every MPC solve of one package's float32 MHE-example loop
   replayed in the other package's float32 from the same inputs and warm
   state (``warm_state_from_jax``): the failed replays.
 - ``perturbed``: the same solves of the JAX package's loop with the warm
   start's primal scaled by (1 + 1e-6·N(0, 1)), three seeds each, in both
   packages: failed solves out of all.
-- ``fixed_3900``: the CIA loop's solve at t = 3 900 s in float64 from the
-  JAX package's inputs and warm state, in both packages: iterations,
-  objective and KKT error of the fixed-binary program.
+- ``trace``: both packages' float32 line searches on the JAX loop's state
+  where the port takes the most steps inside the noise allowance (merit
+  change, noise, progress, the wedge counter, mu and the KKT error per
+  iteration; for the JAX package the error and mu after each iteration
+  and whether its search rejected every candidate).
+- ``fixed_3900``: the CIA loop's fixed-binary program at t = 3 900 s in
+  float64 from the JAX package's inputs, in both packages: the whole
+  solve (iterations, objective, KKT error), the two iterate sequences
+  side by side, and 80 starts with x0 scaled by (1 + 1e-10·N(0, 1)):
+  wedged exits (KKT error above 1e-3) and the spread of the objectives.
+  With ``--fixture`` the program's inputs are written there as JSON.
 
 With ``--out`` the lines are also written to that file. Takes about 15
 minutes on a 4-core CPU; the loops run in parallel subprocesses.
@@ -124,6 +136,8 @@ def run_loop(pkg: str, dtype: str, example: str, capture: str | None):
     out = {"line": "loop", "example": example, "package": pkg,
            "dtype": dtype, "until_s": until, "solves": len(stats),
            "failed_at": [r["time"] for r in stats if not r["success"]],
+           "kkt_above_1e-3_at": [r["time"] for r in stats if r["success"]
+                         and r["kkt_error"] > 1e-3],
            "iterations": [r["iterations"] for r in stats],
            "final_temperature_K": float(rows[-1]["T_out"])}
     if example == "mhe":
@@ -197,43 +211,174 @@ def replay(pkg: str, capture: str, perturb: bool):
             "failed": failed, "solves": n}
 
 
-def fixed_3900():
-    """The CIA loop's solve at t = 3 900 s in f64 in both packages from
-    the JAX package's inputs and warm state."""
+def trace(capture: str):
+    """The line searches of both packages' float32 MPC solves from the
+    JAX package's loop state where the port's search takes the most steps
+    inside the noise allowance. The port's per iteration from
+    ``agentlib_mpc_torch.ops.solver.ITERATION_TRACE``; the JAX package's
+    by re-running its ``solve_nlp`` with ``max_iter`` = 1, 2, ... from the
+    same inputs (a rejected search leaves the iterate bitwise unchanged)."""
+    import numpy as np
+    import torch
+
+    from agentlib_mpc_torch.ops import solver
+
+    with open(capture, "rb") as fh:
+        caps = pickle.load(fh)
+    port, conv = mpc_backend("torch")
+    rows = []
+    solver.ITERATION_TRACE = lambda d: rows.append(
+        {k: (v[0].item() if v.ndim else v.item()) for k, v in d.items()
+         if torch.is_tensor(v) and v.ndim <= 1}
+        | {"merit_change": (d["phis"][0, d["first_ok"][0]]
+                            - d["phi0"][0]).item()})
+    per_state = []
+    for c in caps:
+        rows.clear()
+        port.set_warm_state(conv(c["warm"]))
+        stats = port.solve(c["now"], c["vars"])["stats"]
+        per_state.append((sum(r["accepted"] and not r["progressed"]
+                              for r in rows), c, list(rows), stats))
+    solver.ITERATION_TRACE = None
+    noise_steps, c, rows, stats = max(per_state, key=lambda t: t[0])
+    out = {"line": "trace", "time": c["now"],
+           "noise_only_steps_per_state": [t[0] for t in per_state],
+           "torch": {"iterations": stats["iterations"],
+                     "success": stats["success"],
+                     "per_iteration": [
+                         {k: r[k] for k in ("it", "mu", "alpha", "noise",
+                                            "merit_change", "accepted",
+                                            "progressed", "frozen", "stall",
+                                            "err_0")}
+                         for r in rows]}}
+
+    import jax.numpy as jnp
+
+    from agentlib_mpc_tpu.ops.solver import solve_nlp as jsolve
+
+    jax_backend, jconv = mpc_backend("jax")
+    args = {}
+    step = jax_backend._step
+
+    def captured(*a):
+        args["a"] = a
+        return step(*a)
+
+    jax_backend._step = captured
+    jax_backend.set_warm_state(jconv(c["warm"]))
+    jstats = jax_backend.solve(c["now"], c["vars"])["stats"]
+    (x0, u_prev, d_traj, p, x_lb, x_ub, u_lb, u_ub, w_guess, y_guess,
+     z_guess, mu0, t0) = args["a"]
+    ocp, opts = jax_backend.ocp, jax_backend.solver_options
+    theta = ocp.default_params(x0=x0, u_prev=u_prev, d_traj=d_traj, p=p,
+                               x_lb=x_lb, x_ub=x_ub, u_lb=u_lb, u_ub=u_ub,
+                               t0=t0)
+    lb, ub = ocp.bounds(theta)
+    per_k, w_prev = [], None
+    for k in range(1, int(jstats["iterations"]) + 1):
+        res = jsolve(ocp.nlp, w_guess, theta, lb, ub, opts, y0=y_guess,
+                     z0=z_guess, mu0=mu0, max_iter=jnp.asarray(k))
+        w = np.asarray(res.w)
+        per_k.append({"it": k - 1, "mu": float(res.stats.mu),
+                      "err_0": float(res.stats.kkt_error),
+                      "rejected": bool(w_prev is not None
+                                       and np.array_equal(w, w_prev))})
+        w_prev = w
+    out["jax"] = {"iterations": jstats["iterations"],
+                  "success": jstats["success"], "per_iteration": per_k}
+    return out
+
+
+def fixed_3900(fixture: str | None):
+    """The CIA loop's fixed-binary program at t = 3 900 s in f64, from the
+    JAX package's inputs, in both packages: the whole solve, the iterates
+    after 1, 2, ... iterations, and 80 starts with x0 scaled by
+    (1 + 1e-10·N(0, 1)). With ``fixture`` the program's inputs are written
+    there as JSON (``tests/test_torch_minlp.py`` reads them)."""
     import numpy as np
     import torch
 
     setup_jax(True)
     import jax.numpy as jnp
 
-    from agentlib_mpc_torch.utils.convert import warm_state_from_jax
+    from agentlib_mpc_torch.ops.solver import solve_nlp as psolve
+    from agentlib_mpc_tpu.ops.solver import solve_nlp as jsolve
 
     jmas = make_mas("jax", "f64", "cia")
-    jmod = jmas.agents["Controller"].get_module("mpc")
-    cap, solve = {}, jmod.backend.solve
+    jb = jmas.agents["Controller"].get_module("mpc").backend
+    cap, step = {}, jb._step_fixed
 
-    def captured(now, variables):
-        if now == 3900.0:
-            cap["vars"] = copy.deepcopy(variables)
-            cap["warm"] = {k: (v if k == "cold" else np.asarray(v))
-                           for k, v in jmod.backend.warm_state().items()}
-        return solve(now, variables)
+    def captured(*a):
+        if float(a[-1]) == 3900.0:
+            cap["args"] = [np.asarray(v, dtype=np.float64) for v in a]
+        return step(*a)
 
-    jmod.backend.solve = captured
+    jb._step_fixed = captured
     jmas.run(until=3900.0)
+    names = ("x0", "u_prev", "d_traj", "p", "x_lb", "x_ub", "u_lb", "u_ub",
+             "mu0", "t0")
+    a = dict(zip(names, cap["args"]))
+    if fixture:
+        with open(fixture, "w") as fh:
+            json.dump({k: v.tolist() for k, v in a.items()}, fh)
     pmas = make_mas("torch", "f64", "cia")
-    pmod = pmas.agents["Controller"].get_module("mpc")
-    pmod.backend.set_warm_state(warm_state_from_jax(cap["warm"], "cpu",
-                                                    torch.float64))
-    jmod.backend.set_warm_state({k: (v if k == "cold" else jnp.asarray(v))
-                                 for k, v in cap["warm"].items()})
+    pb = pmas.agents["Controller"].get_module("mpc").backend
+    mu0 = float(a["mu0"])
     out = {"line": "fixed_3900"}
-    for name, backend in (("jax", jmod.backend), ("torch", pmod.backend)):
-        s = backend.solve(3900.0, cap["vars"])["stats"]
-        out[name] = {"iterations": s["iterations"],
-                     "objective": s["objective"],
-                     "kkt_error": s["kkt_error"],
-                     "success": bool(s["success"])}
+    for name, backend, arr in (("jax", jb, jnp.asarray),
+                               ("torch", pb, torch.as_tensor)):
+        s = backend._step_fixed(*(arr(a[k]) for k in names[:8]), mu0,
+                                arr(a["t0"]))[-1]
+        out[name] = {"iterations": int(s.iterations),
+                     "objective": float(s.objective),
+                     "kkt_error": float(s.kkt_error),
+                     "success": bool(s.success)}
+
+    jo, jopts = jb.ocp_fixed, jb._fixed_options
+    po, popts = pb.ocp_fixed, pb._fixed_options
+    theta0 = po.default_params(device="cpu", dtype=torch.float64)
+
+    def programs(x0):
+        jth = jo.default_params(**{k: jnp.asarray(a[k]) for k in names
+                                   if k not in ("mu0", "x0")},
+                                x0=jnp.asarray(x0))
+        pth = theta0._replace(**{k: torch.as_tensor(a[k]) for k in names
+                                 if k not in ("mu0", "x0")},
+                              x0=torch.as_tensor(x0))
+        return ((jo, jth, *jo.bounds(jth), jopts, jsolve,
+                 lambda k: None if k is None else jnp.asarray(k)),
+                (po, pth, *po.bounds(pth), popts, psolve, lambda k: k))
+
+    def run(prog, k=None):
+        ocp, th, lb, ub, opts, solve, mk = prog
+        res = solve(ocp.nlp, ocp.initial_guess(th), th, lb, ub, opts,
+                    mu0=mu0, max_iter=mk(k))
+        return (np.asarray(res.w), float(res.stats.kkt_error),
+                float(res.stats.objective), int(res.stats.iterations))
+
+    jprog, pprog = programs(a["x0"])
+    out["iterates"] = []
+    for k in range(1, out["torch"]["iterations"] + 1):
+        jw, jerr, jobj, jit = run(jprog, k)
+        pw, perr, pobj, pit = run(pprog, k)
+        out["iterates"].append({"k": k, "jax_err": jerr, "jax_obj": jobj,
+                                "jax_it": jit, "torch_err": perr,
+                                "torch_obj": pobj, "torch_it": pit,
+                                "w_max_abs_diff": float(np.abs(jw - pw)
+                                                        .max())})
+    rng = np.random.default_rng(0)
+    ens = {"jax": [], "torch": []}
+    for _ in range(80):
+        x0 = a["x0"] * (1.0 + 1e-10 * rng.standard_normal(a["x0"].shape))
+        for name, prog in zip(("jax", "torch"), programs(x0)):
+            ens[name].append(run(prog)[1:3])
+    out["perturbed"] = {"starts": 80, "x0_rel": 1e-10, **{
+        name: {"kkt_above_1e-3": sum(e > 1e-3 for e, _ in v),
+               "kkt_above_tol": sum(e > 1e-6 for e, _ in v),
+               "kkt_max": max(e for e, _ in v),
+               "objective_min": min(o for _, o in v),
+               "objective_max": max(o for _, o in v)}
+        for name, v in ens.items()}}
     return out
 
 
@@ -244,8 +389,10 @@ def child(argv):
                        argv[4] if len(argv) > 4 else None)
     elif kind == "replay":
         out = replay(argv[1], argv[2], argv[3] == "perturbed")
+    elif kind == "trace":
+        out = trace(argv[1])
     else:
-        out = fixed_3900()
+        out = fixed_3900(argv[1] if len(argv) > 1 else None)
     print("RESULT " + json.dumps(out), flush=True)
 
 
@@ -272,6 +419,8 @@ def main() -> int:
         return 0
     parser = argparse.ArgumentParser()
     parser.add_argument("--out")
+    parser.add_argument("--fixture", help="write the fixed program's "
+                        "inputs at t = 3 900 s there (JSON)")
     args = parser.parse_args()
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2"}
     tmp = tempfile.mkdtemp(prefix="module_f32_witness_")
@@ -289,7 +438,9 @@ def main() -> int:
         spawn(["replay", "torch", caps["jax"], "plain"], env),
         spawn(["replay", "jax", caps["jax"], "perturbed"], env),
         spawn(["replay", "torch", caps["jax"], "perturbed"], env)])
-    lines += collect([spawn(["fixed_3900"], env)])
+    lines += collect([spawn(["trace", caps["jax"]], env),
+                      spawn(["fixed_3900"] + ([args.fixture] if args.fixture
+                                              else []), env)])
     text = "\n".join(json.dumps(line) for line in lines)
     print(text)
     if args.out:

@@ -14,7 +14,12 @@
 * ``MHEBackend``: a cold and then a warm solve from the same measurement
   history give the JAX package's estimated trajectories and parameters
   within 1e-6, and the routing verdicts (``uses_qp_fast_path``) of the
-  port's certificate are the JAX package's certificate's.
+  port's certificate are the JAX package's certificate's;
+* the example's MPC in float32 (the module path's default type) from a
+  state at its float32 precision floor (``tests/data/
+  torch_mhe_mpc_f32_state.json``): the solve succeeds inside its budget,
+  through the wedged-search escape (the JAX package's float32 solves
+  every state of this loop; ``scripts/module_f32_witness.py``).
 
 The JAX side forces the routing its certificate proves (the MHE OCP "on",
 the example's MPC "off"): "auto" would spend its sampled LQ probe (about
@@ -23,6 +28,8 @@ the example's MPC "off"): "auto" would spend its sampled LQ probe (about
 """
 
 import copy
+import json
+import os
 
 import numpy as np
 import pytest
@@ -290,3 +297,40 @@ def jax_certifier():
     mp.setattr(jinterp._Interpreter, "eqn", eqn_with_jit)
     yield jlint
     mp.undo()
+
+
+#: the MPC's inputs and float32 warm state at t = 1 320 s of the port's
+#: float32 loop of the example, where its line search accepted merit rises
+#: inside the noise allowance iteration after iteration and ran out of its
+#: 50 iterations
+F32_STATE = os.path.join(os.path.dirname(__file__), "data",
+                         "torch_mhe_mpc_f32_state.json")
+
+
+def test_f32_mpc_solve_at_the_precision_floor_converges(monkeypatch):
+    from agentlib_mpc_torch.backends.backend import (
+        VariableReference,
+        create_backend,
+    )
+    from agentlib_mpc_torch.ops import solver
+
+    with open(F32_STATE) as fh:
+        state = json.load(fh)
+    # "off": the routing the certificate proves for this OCP (non-LQ)
+    cfg = copy.deepcopy(rc.mhe_one_room_configs(
+        solver={**SOLVER, "qp_fast_path": "off"})[0]["modules"][2]
+        ["optimization_backend"])
+    backend = create_backend(cfg, device="cpu", dtype=torch.float32)
+    backend.setup_optimization(VariableReference(
+        states=["T"], controls=["mDot"], inputs=["T_in", "T_upper"],
+        parameters=["load", "s_T", "r_mDot"]), 120.0, 10)
+    backend.set_warm_state(
+        {k: (v if k == "cold" else torch.tensor(v, dtype=torch.float32))
+         for k, v in state["warm"].items()})
+    seen = []
+    monkeypatch.setattr(solver, "ITERATION_TRACE", lambda d: seen.append(
+        (bool(d["accepted"][0]), bool(d["progressed"][0]))))
+    stats = backend.solve(state["now"], state["variables"])["stats"]
+    assert stats["success"] and stats["iterations"] < 50, stats
+    # steps taken only within the noise allowance, counted as no progress
+    assert seen.count((True, False)) >= 4

@@ -13,7 +13,11 @@
   per step the binary schedule, u0, the relaxed and fixed iterations and
   objectives, and the plant's rows within 1e-8 relative; then one
   relaxed + CIA + fixed ``CIABackend.solve`` from the same warm state
-  (``warm_state_from_jax``) within 1e-6;
+  (``warm_state_from_jax``) within 1e-6; the fixed-binary program stops
+  on a wedged point in both packages at t = 300 s, and from the inputs of
+  t = 3 900 s (``tests/data/torch_cia_fixed_3900.json``), where only the
+  port's does, both succeed within the spread of the JAX package's own
+  optima from starts 1e-10 apart;
 * ``BranchAndBoundBackend`` (``jax_minlp_bb``) at the example's width
   (N=8, ``batch_pairs`` 4) with ``max_nodes`` 3 (one sweep): the same
   schedule,
@@ -27,6 +31,8 @@ port's certificate routes them there itself, which the tests assert):
 """
 
 import copy
+import json
+import os
 
 import numpy as np
 import pytest
@@ -272,6 +278,53 @@ def test_cia_solve_matches_jax_from_the_same_warm_state(cia_loops):
     for key in ("objective", "relaxed_objective", "cia_objective"):
         assert out["stats"][key] == pytest.approx(ref["stats"][key],
                                                   rel=SOLVE_TOL)
+
+
+#: the fixed-binary program's inputs at t = 3 900 s of the JAX package's
+#: f64 CIA loop (``scripts/module_f32_witness.py --fixture``)
+FIXED_3900 = os.path.join(os.path.dirname(__file__), "data",
+                          "torch_cia_fixed_3900.json")
+#: a wedged exit: accepted by the fixed program's wide stall tolerances
+#: (``dual_inf_tol`` 100) with a KKT error far above the solver's tol
+WEDGED_KKT = 1e-3
+#: relative: the fixed program's optimum is flat. From 80 starts whose x0
+#: differ by 1e-10 relative, the JAX package's converged objectives span
+#: 1508.345 to 1508.801, 3.0e-4 of their size (the witness's
+#: ``fixed_3900`` line)
+FIXED_OBJECTIVE_RTOL = 3.5e-4
+
+
+def test_fixed_program_wedges_as_the_reference_does(cia_loops):
+    """The fixed program can stop on a wedged point in both packages. At
+    t = 300 s of the loop the JAX package's own solve does, and the port's
+    follows it (the loop parity above). From the inputs of t = 3 900 s the
+    JAX package converges (KKT 5.1e-7) and the port wedges (0.066): their
+    iterates agree to 2.2e-10 until the JAX package's error at iteration 16
+    falls below tol and the port's (2.5e-6) does not, after which a step
+    pins a variable at its bound (ROADMAP Queue 3). Both still succeed,
+    within the objectives the reference reaches from nearby starts."""
+    import jax.numpy as jnp
+
+    for name in ("port", "jax"):
+        row = cia_loops[name]["solves"][1]
+        assert row["time"] == 300.0 and row["success"]
+        assert row["kkt_error"] > WEDGED_KKT, name
+    with open(FIXED_3900) as fh:
+        a = json.load(fh)
+    names = ("x0", "u_prev", "d_traj", "p", "x_lb", "x_ub", "u_lb", "u_ub")
+    # each package's arguments typed as its backend passes them (the JAX
+    # package's compiled program is reused, not traced again)
+    stats = {"jax": cia_loops["jax"]["module"].backend._step_fixed(
+        *(np.asarray(a[k], dtype=np.float64) for k in names),
+        jnp.asarray(a["mu0"], dtype=jnp.float64),
+        jnp.asarray(a["t0"]))[-1],
+        "port": cia_loops["port"]["module"].backend._step_fixed(
+        *(torch.tensor(a[k], dtype=F64) for k in names), a["mu0"],
+        torch.tensor(a["t0"], dtype=F64))[-1]}
+    for name, st in stats.items():
+        assert bool(st.success), name
+    assert float(stats["port"].objective) == pytest.approx(
+        float(stats["jax"].objective), rel=FIXED_OBJECTIVE_RTOL)
 
 
 # -- branch-and-bound ----------------------------------------------------------
