@@ -3,10 +3,10 @@
 Port of ``agentlib_mpc_tpu/backends/``: the registry (string type → class),
 the base class, model loading, the config translators, the central-MPC
 :class:`JAXBackend`, the MHE backend and the MINLP backends (rounding,
-CIA, branch-and-bound). Importing this package registers the ported
-types; the ADMM (ROADMAP Queue 1 item 2b) and ML (3) backends are not
-ported yet, and a config naming one raises ``NotImplementedError`` naming
-its item.
+CIA, branch-and-bound) and the ADMM backend (``jax_admm``/
+``casadi_admm``). Importing this package registers the ported types; the
+ML backends (ROADMAP Queue 1 item 3) are not ported yet, and a config
+naming one raises ``NotImplementedError`` naming its item.
 """
 
 from agentlib_mpc_torch.backends.backend import (
@@ -19,6 +19,7 @@ from agentlib_mpc_torch.backends.backend import (
     register_backend,
 )
 from agentlib_mpc_torch.backends.mpc_backend import JAXBackend
+from agentlib_mpc_torch.backends.admm_backend import ADMMBackend
 from agentlib_mpc_torch.backends.mhe_backend import MHEBackend
 from agentlib_mpc_torch.backends.minlp_backend import (
     BranchAndBoundBackend,

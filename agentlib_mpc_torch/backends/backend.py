@@ -43,8 +43,6 @@ backend_types: dict[str, Type["OptimizationBackend"]] = {}
 #: backend types of the JAX package whose slice of the port has not come
 #: yet, with the ROADMAP Queue 1 item that brings each
 DEFERRED_BACKEND_TYPES: dict[str, str] = {
-    **dict.fromkeys(("jax_admm", "casadi_admm"),
-                    "2b (ADMM on the module path)"),
     **dict.fromkeys(("jax_ml", "casadi_ml", "casadi_nn", "jax_admm_ml",
                      "casadi_admm_ml"), "3 (ML)"),
 }

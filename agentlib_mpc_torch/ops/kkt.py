@@ -23,7 +23,8 @@ precision than its input's; or raises. It runs the plain PyTorch version
 because the tensor it was given lies on the CPU. Each keeps a launch
 counter (``ldl_factor.launches``, ``ldl_solve.launches``, both types) and
 the sets of (B, M) batch shapes it launched at in float32 (``.shapes``)
-and in float64 (``.shapes_f64``).
+and in float64 (``.shapes_f64``), updated under a lock: the real-time
+ADMM module launches from its worker threads.
 
 Many right-hand sides. ``ldl_solve_many`` solves R right-hand sides
 against one factor (the stage sweep's ``C⁻¹ Eᵀ``). The kernel takes one
@@ -46,6 +47,7 @@ kernels on CUDA); otherwise ``"lu"``. On the CPU "auto" is never
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -216,10 +218,14 @@ def _launch(name: str, device: torch.device, dtype: torch.dtype,
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+_RECORD_LOCK = threading.Lock()
+
+
 def _record(wrapper, dtype: torch.dtype, shape) -> None:
-    wrapper.launches += 1
-    (wrapper.shapes_f64 if dtype == torch.float64
-     else wrapper.shapes).add(shape)
+    with _RECORD_LOCK:
+        wrapper.launches += 1
+        (wrapper.shapes_f64 if dtype == torch.float64
+         else wrapper.shapes).add(shape)
 
 
 def ldl_factor(K: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,7 @@ values resolve as the JAX package does off a TPU: ``precision`` → "full",
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -447,16 +448,25 @@ def _rmv(A, v):
     return torch.matmul(A.transpose(-1, -2), v[..., None])[..., 0]
 
 
+#: held by every solve (both solvers enter through :func:`_true_f32_matmul`):
+#: the TF32 switch and the forward-mode AD levels of ``torch.func``'s
+#: ``jvp`` are process state, so two threads (the real-time ADMM module's
+#: workers) must not interleave solves; interleaved, the derivatives fail
+#: ("forward AD level with an invalid index") or a solve runs with TF32 on
+SOLVE_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _true_f32_matmul():
     """KKT math needs true-f32 products: run with TF32 off and restore the
-    caller's setting afterwards."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    caller's setting afterwards, holding :data:`SOLVE_LOCK`."""
+    with SOLVE_LOCK:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _theta_dims(theta):

@@ -21,7 +21,18 @@
   ``batch_pairs`` 4) on the ``SwitchedRoom`` zoo model (multiple
   shooting, N=8, a step every 300 s) and its plant;
 - :func:`switched_room_backend_config`: the backend configs of
-  ``tests/test_minlp.py``.
+  ``tests/test_minlp.py``;
+- :func:`admm_cooled_room_configs`: the three agents of
+  ``examples/admm_cooled_room.py``: a room (``CooledRoom``) and a cooler
+  (``Cooler``), each an ``admm_local`` module over ``jax_admm`` (degree-2
+  Legendre collocation, N=8, a step every 300 s, 6 ADMM iterations, rho
+  10, budget 40) coupled on the air flow (the room's input ``mDot``, the
+  cooler's output ``mDot_out``, wire alias ``mDotCoolAir``), and the
+  simulated room (a plant step every 60 s);
+- :func:`admm_realtime_pair_configs`: the wall-clock pair of
+  ``tests/test_admm_realtime.py``: the same two models as ``admm``
+  modules (N=4, a step every 8 s, 3 ADMM iterations, a 0.3 s
+  registration window, budget 25, precompiled), wire alias ``air``.
 
 Each takes a ``solver`` dict merged over its solver options (for example
 ``{"kkt_method": "ldl"}``). Run them with
@@ -414,3 +425,117 @@ def minlp_switched_room_configs(prediction_horizon: int = 8,
         ],
     }
     return [controller, plant]
+
+
+#: examples/admm_cooled_room.py: comfort bound, controller step (s) and
+#: start temperature (K)
+ADMM_UB, ADMM_DT, ADMM_START = 295.15, 300.0, 298.16
+
+
+def _admm_backend(model: str, solver: dict | None, **extra) -> dict:
+    return {"type": "jax_admm", "model": {"class": model}, **extra,
+            "solver": {"max_iter": 40, **(solver or {})}}
+
+
+def admm_cooled_room_configs(prediction_horizon: int = 8,
+                             max_iterations: int = 6,
+                             penalty_factor: float = 10.0,
+                             solver: dict | None = None):
+    """examples/admm_cooled_room.py's room, cooler and simulator."""
+    disc = {"discretization_options": {"collocation_order": 2,
+                                       "collocation_method": "legendre"}}
+    admm = {"module_id": "admm", "type": "admm_local",
+            "time_step": ADMM_DT,
+            "prediction_horizon": prediction_horizon,
+            "max_iterations": max_iterations,
+            "penalty_factor": penalty_factor}
+    room = {
+        "id": "CooledRoom",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {**admm,
+             "optimization_backend": _admm_backend("CooledRoom", solver,
+                                                   **disc),
+             "parameters": [{"name": "s_T", "value": 1.0}],
+             "inputs": [
+                 {"name": "load", "value": 150},
+                 {"name": "T_in", "value": 290.15},
+                 {"name": "T_upper", "value": ADMM_UB},
+             ],
+             "controls": [],
+             "states": [
+                 {"name": "T", "value": ADMM_START, "ub": 303.15,
+                  "lb": 288.15, "alias": "T", "source": "Simulation"},
+             ],
+             "couplings": [
+                 {"name": "mDot", "alias": "mDotCoolAir", "value": 0.02,
+                  "ub": 0.05, "lb": 0.0},
+             ]},
+        ],
+    }
+    cooler = {
+        "id": "Cooler",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {**admm,
+             "optimization_backend": _admm_backend("Cooler", solver,
+                                                   **disc),
+             "parameters": [{"name": "r_mDot", "value": 1.0}],
+             "controls": [
+                 {"name": "mDot", "value": 0.02, "ub": 0.05, "lb": 0.0},
+             ],
+             "couplings": [
+                 {"name": "mDot_out", "alias": "mDotCoolAir",
+                  "value": 0.02},
+             ]},
+        ],
+    }
+    sim = {
+        "id": "Simulation",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "simulator", "type": "simulator",
+             "model": {"class": "CooledRoom",
+                       "states": [{"name": "T", "value": ADMM_START}]},
+             "t_sample": 60,
+             "outputs": [{"name": "T_out", "value": ADMM_START,
+                          "alias": "T"}],
+             "inputs": [{"name": "mDot", "value": 0.02, "alias": "mDot"}]},
+        ],
+    }
+    return [room, cooler, sim]
+
+
+def admm_realtime_pair_configs(solver: dict | None = None):
+    """tests/test_admm_realtime.py's wall-clock room and cooler."""
+
+    def agent(aid, model, couplings, controls, extra):
+        backend = {"type": "jax_admm", "model": {"class": model},
+                   "discretization_options": {"collocation_order": 2},
+                   "solver": {"max_iter": 25, **(solver or {})},
+                   "precompile": True}
+        return {"id": aid, "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "admm", "type": "admm",
+             "optimization_backend": backend,
+             "time_step": 8.0, "prediction_horizon": 4,
+             "max_iterations": 3, "iteration_timeout": 5.0,
+             "registration_period": 0.3, "penalty_factor": 10.0,
+             "couplings": couplings, "controls": controls, **extra},
+        ]}
+
+    room = agent(
+        "Room", "CooledRoom",
+        couplings=[{"name": "mDot", "alias": "air", "value": 0.02,
+                    "ub": 0.05, "lb": 0.0}],
+        controls=[],
+        extra={"inputs": [{"name": "load", "value": 150},
+                          {"name": "T_in", "value": 290.15},
+                          {"name": "T_upper", "value": 295.15}],
+               "states": [{"name": "T", "value": 298.16}]})
+    cooler = agent(
+        "Cooler", "Cooler",
+        couplings=[{"name": "mDot_out", "alias": "air", "value": 0.02}],
+        controls=[{"name": "mDot", "value": 0.02, "ub": 0.05, "lb": 0.0}],
+        extra={"parameters": [{"name": "r_mDot", "value": 1.0}]})
+    return [room, cooler]

@@ -23,8 +23,12 @@ dicts and tuples as the engine nests them, comes in through
 ``OtherFusedState(**to_numpy(state)._asdict())`` rebuilds the other
 framework's). A fleet's per-group stacked parameters come in through
 :func:`theta_batches_from_numpy`, and a module-path backend's warm start
-(``OptimizationBackend.warm_state()``) through :func:`warm_state_from_jax`. Floating leaves take the given dtype;
-integer and boolean leaves keep theirs.
+(``OptimizationBackend.warm_state()``) through :func:`warm_state_from_jax`
+(an ADMM backend's too: the same ``w``, ``y``, ``z`` and ``cold``).
+Floating leaves take the given dtype; integer and boolean leaves keep
+theirs. A decentralized ADMM module's own state, the local, mean and
+multiplier trajectories it keeps on the host, comes in through
+:func:`admm_values_from_jax`.
 """
 
 from __future__ import annotations
@@ -170,3 +174,13 @@ def warm_state_from_jax(tree: Mapping, device=None,
            for k in ("w", "y", "z")}
     out["cold"] = bool(tree["cold"])
     return out
+
+
+def admm_values_from_jax(values: Mapping) -> dict:
+    """A decentralized ADMM module's trajectories from another framework's
+    (its ``_admm_values``: per coupling the local, mean or exchange
+    deviation and multiplier trajectories on the coupling grid, keyed by
+    their wire names) as float64 numpy copies: both packages keep this
+    state on the host."""
+    return {str(k): np.array(np.asarray(v), dtype=np.float64)
+            for k, v in values.items()}

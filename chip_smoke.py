@@ -153,9 +153,35 @@ non-zero without printing a result:
               solve and per sweep, the example's gates, on every step the
               incumbent at most the rounding heuristic's
               (``bb_proven_optimal`` and ``bb_improved_on_heuristic`` per
-              step in the line). module_one_room, module_linear_qp and
-              module_mhe each have a ``*_profile`` line.
-20. path_shapes — every (B, M) a path launched, in each type it launched
+              step in the line). module_one_room, module_linear_qp,
+              module_mhe and module_admm each have a ``*_profile`` line.
+20. module_admm — ``examples/admm_cooled_room.py``'s three agents for
+              1 800 s in f32: the room and the cooler as ``admm_local``
+              modules over ``jax_admm``, whose augmented problems route by
+              their certificates (the room's NLP at (1, 74), one factor
+              and three solves per iteration; the cooler, which has no
+              states, on the QP at (1, 8), one factor and six solves per
+              iteration), both agents' solves and guard levels captured;
+              six ADMM iterations on every step, every solve successful at
+              guard level 0 with no warm-start reset, the example's gates
+              (the room cools below 297.0 K, the actuated air flow at most
+              0.05 m³/s, the two agents' trajectories within 5e-3 of each
+              other at the last step's last iteration, the gap printed per
+              step), the final temperature within 0.02 K of the same loop
+              in f64 on the CPU.
+21. module_admm_rt — ``tests/test_admm_realtime.py``'s pair of real-time
+              ``admm`` modules (N=4, a step every 8 s) on the wall clock
+              for 10 s of the MAS's clock in f64 (in f32 the room's solves
+              fail on the pivot-free LDLᵀ in both packages:
+              ``scripts/admm_f32_witness.py``), the rounds its triggers
+              started run to their end in the worker threads, then
+              ``terminate()``: each registered the other on the wire alias,
+              ran at least one round with successful solves and no failed
+              round (a round that raises fails the phase), solved in its
+              worker thread on the default stream, the room's mean air flow
+              finite with shape (4,), no worker alive afterwards, and the
+              launches exact per iteration over both threads.
+22. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
@@ -397,6 +423,37 @@ MINLP_CIA_REPLAY_TOL_K = 1e-6
 #: f64 on the CPU), so 2 100 s is the shortest run whose duty cycle can
 #: fall inside (0, 1)
 MINLP_BB_UNTIL = 2100.0
+
+#: decentralized consensus ADMM on the module path: examples/admm_cooled_
+#: room.py's room and cooler (admm_local over jax_admm, N=8, 6 ADMM
+#: iterations per step) and its plant, in float32 on the card (with the
+#: plain LDLᵀ on the CPU the port's float32 loop fails none of its 36 + 36
+#: solves, the JAX package's 1: scripts/admm_f32_witness.py, ``loop``
+#: lines), to 1 800 s: the depth of tests/test_admm_module.py (6 control
+#: steps, 36 solves per agent). Its gates: the room cools and ends below
+#: 297.0 K, the actuated air flow at most 0.05 m³/s, and at the last
+#: step's last iteration the two agents' air-flow trajectories within
+#: 5e-3 m³/s of each other (tests/test_admm_module.py:127-140)
+ADMM_UNTIL = 1800.0
+ADMM_ITERATIONS = 6
+ADMM_T_LIMIT_K = 297.0
+ADMM_MDOT_MAX = 0.05 + 1e-9
+ADMM_COUPLING_GAP_TOL = 5e-3
+#: the card's final room temperature against the same loop in f64 on the
+#: CPU (plain LDLᵀ), fixed before any card run; on the CPU the float32
+#: loop ends 2.4e-3 K (JAX package) and 2.6e-3 K (port) from float64
+#: (scripts/admm_f32_witness.py)
+ADMM_T_F64_TOL_K = 0.02
+#: tests/test_admm_realtime.py's wall-clock pair (admm modules, N=4, a
+#: step every 8 s, 3 iterations, a 0.3 s registration window): a 10 s run
+#: of the MAS's clock, then the rounds the triggers started run to their
+#: end in the worker threads. In float64 (the kernels' float64
+#: instantiations): on the pivot-free LDLᵀ the room's N=4 problem fails
+#: most of its float32 solves in both packages (JAX 6 of 9, the port 8 of
+#: 9; float64 0 and 0: scripts/admm_f32_witness.py, ``rt`` lines), so
+#: float32 cannot meet the test's gates
+ADMM_RT_UNTIL = 10.0
+ADMM_RT_DTYPE = "float64"
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -1973,7 +2030,8 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
     keeps its inputs and the warm state it started from (on the host),
     for :func:`replay_solves`. The backends of the modules ``extra_at``
     ((agent, module) pairs beside the guarded MPC) are counted the same
-    way, into ``run["extra"]["agent/module"]``; ``instrument(mas)`` runs
+    way, into ``run["extra"]["agent/module"]`` (with their guard's level
+    where they have one: a second solving agent); ``instrument(mas)`` runs
     just before the launch counts are reset."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.runtime.mas import LocalMAS
@@ -2000,6 +2058,15 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
             return result
 
         module.backend.solve = counted_extra
+        guard = getattr(module, "guard", None)
+        if guard is not None:
+            def recorded_extra_assess(*args, _assess=guard.assess,
+                                      _guard=guard, _rows=rows, **kwargs):
+                decision = _assess(*args, **kwargs)
+                _rows[-1]["guard_level"] = _guard.level
+                return decision
+
+            guard.assess = recorded_extra_assess
         extra[f"{agent}/{module_id}"] = {"module": module, "solves": rows}
 
     def counted_solve(now, variables):
@@ -2154,6 +2221,9 @@ def reference_specs():
         "module_minlp_cia": (lambda: rc.minlp_switched_room_configs(
             backend_type="jax_cia", solver=plain), ("Controller", "mpc"),
             ("Plant", "room"), (), MINLP_CIA_UNTIL),
+        "module_admm": (lambda: rc.admm_cooled_room_configs(solver=plain),
+                        ("CooledRoom", "admm"), ("Simulation", "simulator"),
+                        (("Cooler", "admm"),), ADMM_UNTIL),
     }
 
 
@@ -2181,6 +2251,9 @@ def reference_run(name: str) -> dict:
     if name == "module_mhe":
         out["load"] = float(run["extra"]["Controller/mhe"]["module"]
                             .get_value("load"))
+    if name == "module_admm":
+        out["steps"] = admm_steps(
+            run["mpc"], run["extra"]["Cooler/admm"]["module"])
     return out
 
 
@@ -2217,7 +2290,7 @@ def replay_specs():
 def split_cores():
     """(cores of this process, cores of its CPU subprocesses): the last
     five cores this process may use go to the subprocesses (the slice's
-    and the four module phases' references, one thread each) where at
+    and the five module phases' references, one thread each) where at
     least three stay for the card's host thread; else no split."""
     cores = sorted(os.sched_getaffinity(0))
     if len(cores) >= 8:
@@ -2679,6 +2752,239 @@ def phase_cia_replay(run, rep):
           f"{max(relaxed_gap)} K in the relaxed trajectory")
 
 
+def admm_steps(room, cooler):
+    """Per control step of the cooled-room pair: the ADMM iterations each
+    agent ran and, at the step's last iteration, the largest gap between
+    the room's and the cooler's air-flow trajectories (m³/s)."""
+    def step(row):   # each iteration is recorded just after its start
+        return int(np.floor(row["time"] / room.time_step + 1e-9))
+
+    out = []
+    for k in sorted({step(r) for r in room._iter_rows}):
+        rows = {name: [r for r in module._iter_rows if step(r) == k]
+                for name, module in (("room", room), ("cooler", cooler))}
+        last = {name: r[-1]["couplings"] for name, r in rows.items() if r}
+        gap = (float(np.abs(np.asarray(last["room"]["mDot"]) - np.asarray(
+            last["cooler"]["mDot_out"])).max()) if len(last) == 2
+            else float("nan"))
+        out.append({"time": k * room.time_step,
+                    "iterations": {name: [r["iteration"] for r in rs]
+                                   for name, rs in rows.items()},
+                    "last_iteration_gap": gap})
+    return out
+
+
+def phase_module_admm(torch, dev, smi, ref):
+    """examples/admm_cooled_room.py's three agents through LocalMAS on the
+    card in f32: the room's augmented NLP at (1, 74) and the cooler's
+    augmented QP at (1, 8), six ADMM iterations per control step, held
+    against the same loop in f64 on the CPU with the plain LDLᵀ."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    t_phase = time.perf_counter()
+    run = drive_mas(torch, rc.admm_cooled_room_configs(), dev,
+                    torch.float32, ADMM_UNTIL, ("CooledRoom", "admm"),
+                    ("Simulation", "simulator"), count_launches=True,
+                    extra_at=[("Cooler", "admm")])
+    cooler = run["extra"]["Cooler/admm"]
+    room_m, cooler_m = run["mpc"], cooler["module"]
+    backends = {"room": room_m.backend, "cooler": cooler_m.backend}
+    solves = {"room": run["solves"], "cooler": cooler["solves"]}
+    sizes = {k: b.ocp.n_w + b.ocp.n_g for k, b in backends.items()}
+    steps = admm_steps(room_m, cooler_m)
+    temps = [r["T_out"] for r in run["rows"]]
+    mdot_max = max(r["mDot"] for r in run["rows"])
+    t64 = ref["rows"][-1]["T_out"]
+    levels = {k: [r["guard_level"] for r in rows if "guard_level" in r]
+              for k, rows in solves.items()}
+    emit({"phase": "module_admm", "dtype": "float32", "kkt_size": sizes,
+          "horizon": backends["room"].N, "until_s": ADMM_UNTIL,
+          "qp_fast_path": {k: b.uses_qp_fast_path
+                           for k, b in backends.items()},
+          "room": module_summary(run),
+          "cooler": module_summary({**run, "solves": cooler["solves"]}),
+          "launches": run["totals"],
+          "solves_per_factor": {"room": per_factor(backends["room"]),
+                                "cooler": 6},
+          "steps": steps,
+          "guard_levels": levels,
+          "final_room_temperature_K": temps[-1],
+          "f64_cpu_final_room_temperature_K": t64,
+          "t_f64_abs_diff_K": abs(temps[-1] - t64),
+          "t_f64_tol_K": ADMM_T_F64_TOL_K,
+          "f64_cpu_steps": ref["steps"],
+          "f64_cpu_iterations_per_solve": {
+              "room": [r["iterations"] for r in ref["solves"]],
+              "cooler": [r["iterations"]
+                         for r in ref["extra"]["Cooler/admm"]]},
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "mdot_actuated_max": mdot_max,
+          "warm_start_resets": {k: b.warm_start_resets
+                                for k, b in backends.items()},
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    check(sizes == {"room": 74, "cooler": 8},
+          f"module_admm: KKT sizes {sizes}, expected room 74, cooler 8")
+    check(not backends["room"].uses_qp_fast_path
+          and backends["cooler"].uses_qp_fast_path,
+          "module_admm: the room must route to the NLP, the cooler to the "
+          "QP")
+    n_steps = int(round(ADMM_UNTIL / rc.ADMM_DT))
+    for name, rows in solves.items():
+        check(len(rows) == n_steps * ADMM_ITERATIONS,
+              f"module_admm ({name}): {len(rows)} solves")
+        check(levels[name] == [0] * n_steps,
+              f"module_admm ({name}): guard levels per step {levels[name]}")
+        check(backends[name].warm_start_resets == 0,
+              f"module_admm ({name}): a warm start was reset")
+    check_solve_launches("module_admm (room)", solves["room"], 1,
+                         per_factor(backends["room"]))
+    check_solve_launches("module_admm (cooler)", solves["cooler"], 1, 6)
+    check_shapes("module_admm", run["totals"], [(1, 74), (1, 8)],
+                 "float32")
+    iterations = list(range(ADMM_ITERATIONS))
+    check(all(st["iterations"] == {"room": iterations, "cooler": iterations}
+              for st in steps) and len(steps) == n_steps,
+          f"module_admm: ADMM iterations per step "
+          f"{[st['iterations'] for st in steps]}")
+    check(all(r["success"] for r in ref["solves"]
+              + ref["extra"]["Cooler/admm"]),
+          "module_admm: the f64 CPU reference failed a solve")
+    check(np.isfinite(temps).all() and temps[0] > temps[-1]
+          and temps[-1] < ADMM_T_LIMIT_K,
+          f"module_admm: the room went {temps[0]} -> {temps[-1]} K")
+    check(mdot_max <= ADMM_MDOT_MAX,
+          f"module_admm: actuated air flow {mdot_max}")
+    check(steps[-1]["last_iteration_gap"] < ADMM_COUPLING_GAP_TOL,
+          f"module_admm: the agents' air flows are "
+          f"{steps[-1]['last_iteration_gap']} apart at the last iteration")
+    check(abs(temps[-1] - t64) <= ADMM_T_F64_TOL_K,
+          f"module_admm: final room temperature {temps[-1]} K against f64 "
+          f"CPU {t64} K")
+    profile_module_solve(torch, run, "module_admm_profile")
+    return run["totals"]
+
+
+def phase_module_admm_rt(torch, dev, smi):
+    """tests/test_admm_realtime.py's pair of real-time ``admm`` modules
+    through LocalMAS on the card in f64, on the wall clock for 10 s of the
+    MAS's clock; the rounds its triggers started run on to their end in
+    the modules' worker threads; then ``terminate()``."""
+    import threading
+
+    from agentlib_mpc_torch import reference_configs as rc
+    from agentlib_mpc_torch.modules.admm import ModuleStatus
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.runtime.mas import LocalMAS
+    from agentlib_mpc_torch.runtime.variables import Source
+
+    t_phase = time.perf_counter()
+    mas = LocalMAS(rc.admm_realtime_pair_configs(),
+                   env={"rt": True, "factor": 1.0}, device=dev,
+                   dtype=getattr(torch, ADMM_RT_DTYPE))
+    build_s = time.perf_counter() - t_phase
+    modules = {aid: mas.agents[aid].get_module("admm")
+               for aid in ("Room", "Cooler")}
+    where = {aid: set() for aid in modules}   # (thread, stream) per solve
+    for aid, module in modules.items():
+        def located(now, variables, _solve=module.backend.solve,
+                    _where=where[aid]):
+            _where.add((threading.current_thread().name,
+                        torch.cuda.current_stream(dev).cuda_stream))
+            return _solve(now, variables)
+
+        module.backend.solve = located
+
+    def settled(m):
+        return (m.rounds_run + m.failed_rounds >= 1
+                and not m.start_step.is_set()
+                and m._status == ModuleStatus.sleeping)
+
+    try:
+        torch.cuda.synchronize()
+        kkt.reset_launch_counts()
+        t0 = time.perf_counter()
+        mas.run(until=ADMM_RT_UNTIL)
+        run_s = time.perf_counter() - t0
+        m0 = modules["Room"]
+        deadline = time.perf_counter() + m0.registration_period \
+            + m0.max_iterations * m0.iteration_timeout + 5.0
+        while time.perf_counter() < deadline and not all(
+                settled(m) for m in modules.values()):
+            time.sleep(0.05)
+        drain_s = time.perf_counter() - t0 - run_s
+        torch.cuda.synchronize()
+        totals = launch_totals(kkt)
+        threads = {aid: m._thread for aid, m in modules.items()}
+    finally:
+        mas.terminate()
+    alive = [t.name for t in threads.values()
+             if t is not None and t.is_alive()]
+    wire = "admm_coupling_air"
+    registered = {aid: sorted(src.agent_id for src in
+                              m._registered_participants[wire])
+                  for aid, m in modules.items()}
+    backends = {aid: m.backend for aid, m in modules.items()}
+    sizes = {aid: b.ocp.n_w + b.ocp.n_g for aid, b in backends.items()}
+    iterations = {aid: sum(r["iterations"] for r in b.stats_history)
+                  for aid, b in backends.items()}
+    mean = np.asarray(modules["Room"]._admm_values[
+        "admm_coupling_mean_mDot"], dtype=float)
+    default_stream = torch.cuda.default_stream(dev).cuda_stream
+    emit({"phase": "module_admm_rt", "dtype": ADMM_RT_DTYPE,
+          "kkt_size": sizes, "until_s": ADMM_RT_UNTIL,
+          "build_seconds": build_s, "run_seconds": run_s,
+          "drain_seconds": drain_s,
+          "rounds_run": {aid: m.rounds_run for aid, m in modules.items()},
+          "overruns": {aid: m.overruns for aid, m in modules.items()},
+          "failed_rounds": {aid: m.failed_rounds
+                            for aid, m in modules.items()},
+          "admm_iterations": {aid: len(m._iter_rows)
+                              for aid, m in modules.items()},
+          "solves": {aid: [{"iterations": r["iterations"],
+                            "success": r["success"],
+                            "ms": r["solve_wall_time"] * 1e3}
+                           for r in b.stats_history]
+                     for aid, b in backends.items()},
+          "solve_threads_and_streams": {aid: sorted(map(list, w))
+                                        for aid, w in where.items()},
+          "default_stream": default_stream,
+          "registered": registered, "room_mean_mDot": mean.tolist(),
+          "threads_alive_after_terminate": alive,
+          "launches": totals, "nvidia_smi": smi})
+    for aid, m in modules.items():
+        other = "Cooler" if aid == "Room" else "Room"
+        check(Source(agent_id=other, module_id="admm")
+              in m._registered_participants[wire],
+              f"module_admm_rt: {aid} did not register {other} on {wire}")
+        check(m.failed_rounds == 0 and m.rounds_run >= 1,
+              f"module_admm_rt: {aid} ran {m.rounds_run} rounds, "
+              f"{m.failed_rounds} failed")
+        check(bool(m._iter_rows)
+              and all(r["stats"]["success"] for r in m._iter_rows),
+              f"module_admm_rt: {aid} completed "
+              f"{len(m._iter_rows)} iterations, not all successful")
+        check(bool(where[aid]) and all(
+            name.startswith("admm_loop_") and stream == default_stream
+            for name, stream in where[aid]),
+              f"module_admm_rt: {aid} solved on {sorted(where[aid])}")
+    check(mean.shape == (4,) and np.isfinite(mean).all(),
+          f"module_admm_rt: the room's mean air flow {mean.tolist()}")
+    check(not alive and all(m._thread is None for m in modules.values()),
+          f"module_admm_rt: worker threads alive after terminate: {alive}")
+    check_shapes("module_admm_rt", totals,
+                 [(1, sizes["Room"]), (1, sizes["Cooler"])], ADMM_RT_DTYPE)
+    want_factor = sum(iterations.values())
+    want_solve = per_factor(backends["Room"]) * iterations["Room"] \
+        + 6 * iterations["Cooler"]
+    check(totals["ldl_factor"] == want_factor
+          and totals["ldl_solve"] == want_solve,
+          f"module_admm_rt: {totals['ldl_factor']} factor / "
+          f"{totals['ldl_solve']} solve launches, expected {want_factor} / "
+          f"{want_solve} for {iterations} iterations")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2767,6 +3073,10 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
     by_path["module_minlp_bb"], _ = timed(
         "module_minlp_bb", phase_module_minlp, torch, dev, smi,
         "jax_minlp_bb")
+    by_path["module_admm"] = timed("module_admm", phase_module_admm, torch,
+                                   dev, smi, refs.get("module_admm"))
+    by_path["module_admm_rt"] = timed("module_admm_rt",
+                                      phase_module_admm_rt, torch, dev, smi)
     timed("module_minlp_cia_replay", phase_cia_replay, cia_run,
           refs.get("replay:module_minlp_cia"))
     new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,

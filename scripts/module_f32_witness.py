@@ -2,7 +2,7 @@
 """Float32 and float64 on the MHE and MINLP examples, both packages, CPU.
 
     JAX_PLATFORMS=cpu python3 scripts/module_f32_witness.py [--out PATH]
-        [--fixture PATH]
+        [--fixture PATH] [--starts N] [--only fixed_3900]
 
 Which type each of ``chip_smoke.py``'s ``module_mhe`` (float32),
 ``module_minlp_cia`` and ``module_minlp_bb`` (float64) runs in, and how
@@ -33,9 +33,14 @@ card's factor in the port), from ``agentlib_mpc_torch/reference_configs.py``
 - ``fixed_3900``: the CIA loop's fixed-binary program at t = 3 900 s in
   float64 from the JAX package's inputs, in both packages: the whole
   solve (iterations, objective, KKT error), the two iterate sequences
-  side by side, and 80 starts with x0 scaled by (1 + 1e-10·N(0, 1)):
-  wedged exits (KKT error above 1e-3) and the spread of the objectives.
-  With ``--fixture`` the program's inputs are written there as JSON.
+  side by side, and ``--starts`` starts (80 by default) with x0 scaled by
+  (1 + 1e-10·N(0, 1)), seed 0: wedged exits (KKT error above 1e-3) and
+  the spread of the objectives. With ``--fixture`` the program's inputs
+  are written there as JSON.
+- ``fixed_3900_counts``: the wedged exits of both packages from those
+  starts, with the number of starts and the seed, on a line of its own.
+
+``--only fixed_3900`` runs that program alone (a few minutes).
 
 With ``--out`` the lines are also written to that file. Takes about 15
 minutes on a 4-core CPU; the loops run in parallel subprocesses.
@@ -56,6 +61,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
+#: seed of the perturbed starts of the fixed program at t = 3 900 s
+FIXED_SEED = 0
 UNTIL = {"mhe": 3600.0, "cia": 7200.0, "bb": 7200.0}
 #: the port's branch-and-bound loop is cut to the chip phase's depth
 PORT_BB_UNTIL = 2100.0
@@ -289,11 +296,11 @@ def trace(capture: str):
     return out
 
 
-def fixed_3900(fixture: str | None):
+def fixed_3900(fixture: str | None, starts: int = 80):
     """The CIA loop's fixed-binary program at t = 3 900 s in f64, from the
     JAX package's inputs, in both packages: the whole solve, the iterates
-    after 1, 2, ... iterations, and 80 starts with x0 scaled by
-    (1 + 1e-10·N(0, 1)). With ``fixture`` the program's inputs are written
+    after 1, 2, ... iterations, and ``starts`` starts with x0 scaled by
+    (1 + 1e-10·N(0, 1)), seed 0. With ``fixture`` the program's inputs are written
     there as JSON (``tests/test_torch_minlp.py`` reads them)."""
     import numpy as np
     import torch
@@ -366,13 +373,14 @@ def fixed_3900(fixture: str | None):
                                 "torch_obj": pobj, "torch_it": pit,
                                 "w_max_abs_diff": float(np.abs(jw - pw)
                                                         .max())})
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(FIXED_SEED)
     ens = {"jax": [], "torch": []}
-    for _ in range(80):
+    for _ in range(starts):
         x0 = a["x0"] * (1.0 + 1e-10 * rng.standard_normal(a["x0"].shape))
         for name, prog in zip(("jax", "torch"), programs(x0)):
             ens[name].append(run(prog)[1:3])
-    out["perturbed"] = {"starts": 80, "x0_rel": 1e-10, **{
+    out["perturbed"] = {"starts": starts, "seed": FIXED_SEED,
+                        "x0_rel": 1e-10, **{
         name: {"kkt_above_1e-3": sum(e > 1e-3 for e, _ in v),
                "kkt_above_tol": sum(e > 1e-6 for e, _ in v),
                "kkt_max": max(e for e, _ in v),
@@ -392,8 +400,17 @@ def child(argv):
     elif kind == "trace":
         out = trace(argv[1])
     else:
-        out = fixed_3900(argv[1] if len(argv) > 1 else None)
+        out = fixed_3900(argv[2] if len(argv) > 2 else None, int(argv[1]))
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def wedge_counts(line: dict) -> dict:
+    """The ``fixed_3900`` line's wedged exits on a line of their own."""
+    pert = line["perturbed"]
+    return {"line": "fixed_3900_counts", "starts": pert["starts"],
+            "seed": pert["seed"], "x0_rel": pert["x0_rel"],
+            **{f"{pkg}_wedged": pert[pkg]["kkt_above_1e-3"]
+               for pkg in ("jax", "torch")}}
 
 
 def spawn(args, env):
@@ -421,6 +438,10 @@ def main() -> int:
     parser.add_argument("--out")
     parser.add_argument("--fixture", help="write the fixed program's "
                         "inputs at t = 3 900 s there (JSON)")
+    parser.add_argument("--starts", type=int, default=80,
+                        help="perturbed starts of the fixed program")
+    parser.add_argument("--only", choices=("fixed_3900",),
+                        help="run only that line")
     args = parser.parse_args()
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2"}
     tmp = tempfile.mkdtemp(prefix="module_f32_witness_")
@@ -430,17 +451,24 @@ def main() -> int:
             + ([caps[pkg]] if (example, dtype) == ("mhe", "f32") else [])
             for example in ("mhe", "cia", "bb")
             for pkg in ("jax", "torch") for dtype in ("f32", "f64")]
+    fixed = ["fixed_3900", str(args.starts)] + (
+        [args.fixture] if args.fixture else [])
     lines = []
-    for start in range(0, len(jobs), 4):
-        lines += collect([spawn(job, env) for job in jobs[start:start + 4]])
-    lines += collect([
-        spawn(["replay", "jax", caps["torch"], "plain"], env),
-        spawn(["replay", "torch", caps["jax"], "plain"], env),
-        spawn(["replay", "jax", caps["jax"], "perturbed"], env),
-        spawn(["replay", "torch", caps["jax"], "perturbed"], env)])
-    lines += collect([spawn(["trace", caps["jax"]], env),
-                      spawn(["fixed_3900"] + ([args.fixture] if args.fixture
-                                              else []), env)])
+    if args.only is None:
+        for start in range(0, len(jobs), 4):
+            lines += collect([spawn(job, env)
+                              for job in jobs[start:start + 4]])
+        lines += collect([
+            spawn(["replay", "jax", caps["torch"], "plain"], env),
+            spawn(["replay", "torch", caps["jax"], "plain"], env),
+            spawn(["replay", "jax", caps["jax"], "perturbed"], env),
+            spawn(["replay", "torch", caps["jax"], "perturbed"], env)])
+        lines += collect([spawn(["trace", caps["jax"]], env),
+                          spawn(fixed, env)])
+    else:
+        lines += collect([spawn(fixed, env)])
+    lines += [wedge_counts(line) for line in lines
+              if line.get("line") == "fixed_3900"]
     text = "\n".join(json.dumps(line) for line in lines)
     print(text)
     if args.out:
