@@ -258,7 +258,10 @@ class Model:
 
         Each (lb, expr, ub) triple contributes ``expr − lb`` and/or
         ``ub − expr``; statically infinite bounds are dropped, bounds that
-        are tensors are kept as nonlinear residuals.
+        are tensors are kept as nonlinear residuals. Every residual covers
+        the whole batch of points, also one that depends on none of the
+        arguments that vary across it (a constraint on the controls alone
+        is evaluated at every collocation point, as the JAX package does).
         """
         eq, _ = self._bind(x_diff, z_free, u, p, t)
         res = []
@@ -267,8 +270,10 @@ class Model:
                 res.append(expr - lb)
             if not (isinstance(ub, (int, float)) and math.isinf(ub)):
                 res.append(ub - expr)
-        return _stack(res, _like(x_diff, z_free, u, p),
-                      _batch_shape(x_diff, z_free, u, p, t))
+        batch = _batch_shape(x_diff, z_free, u, p, t)
+        out = _stack(res, _like(x_diff, z_free, u, p), batch)
+        return out.expand(out.shape[:1]
+                          + torch.broadcast_shapes(out.shape[1:], batch))
 
     def _stage_eq(self, x_diff, z_free, u, p, t, du):
         if du is None:

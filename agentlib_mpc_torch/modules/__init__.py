@@ -4,16 +4,21 @@ Port of ``agentlib_mpc_tpu/modules/``. Importing this package registers
 the ported module types: ``mpc``/``mpc_basic``/``mpc_full``, ``simulator``,
 ``pid``/``fallback_pid``, ``mpc_on_off``/``skip_mpc_intervals``,
 ``data_source``, ``set_point_generator``,
-``try_predictor``/``input_predictor``, ``mhe``, ``minlp_mpc`` and the
-decentralized ADMM modules ``admm_local``/``local_admm`` and ``admm``
-(``runtime.module.create_module`` imports it before its first lookup). A
-config naming a type of a later slice (the ADMM coordinator, ML) raises
+``try_predictor``/``input_predictor``, ``mhe``, ``minlp_mpc``, the
+decentralized ADMM modules ``admm_local``/``local_admm`` and ``admm``, and
+the coordinator-based ADMM modules ``admm_coordinator`` and
+``admm_coordinated`` (``runtime.module.create_module`` imports it before
+its first lookup). A config naming a type of a later slice (ML) raises
 ``NotImplementedError`` naming its ROADMAP item
 (``runtime.module.DEFERRED_MODULE_TYPES``).
 """
 
 from agentlib_mpc_torch.modules.mpc import BaseMPC, MINLPMPC, MPC
 from agentlib_mpc_torch.modules.admm import LocalADMM, RealtimeADMM
+from agentlib_mpc_torch.modules.coordinator import (
+    ADMMCoordinator,
+    CoordinatedADMM,
+)
 from agentlib_mpc_torch.modules.estimation import MHE
 from agentlib_mpc_torch.modules.simulator import Simulator
 from agentlib_mpc_torch.modules.data_source import DataSource

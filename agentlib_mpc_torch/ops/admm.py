@@ -1,12 +1,12 @@
 """ADMM consensus and exchange math as plain tensor functions.
 
-Port of ``agentlib_mpc_tpu/ops/admm.py`` without its telemetry recorders
-(``record_residuals``/``trim_residuals`` write the telemetry registry and
-wait for it): the masked mean, the consensus and exchange updates with
-Boyd-style residuals, their combination over several couplings, the
-relative-tolerance convergence check, the residual-balancing penalty, the
-shift-by-one warm start and the augmented-Lagrangian penalties each local
-problem adds. Coupling trajectories are stacked with the agent axis first.
+Port of ``agentlib_mpc_tpu/ops/admm.py``: the masked mean, the consensus
+and exchange updates with Boyd-style residuals, their combination over
+several couplings, the relative-tolerance convergence check, the
+residual-balancing penalty, the shift-by-one warm start, the
+augmented-Lagrangian penalties each local problem adds, and the host-side
+residual recorders (:func:`record_residuals`, :func:`trim_residuals`) the
+ADMM coordinator writes its rounds with. Coupling trajectories are stacked with the agent axis first.
 The mesh form (``axis_name``, a ``psum`` over a sharded agent axis) waits
 for the multi-GPU slice.
 """
@@ -143,6 +143,50 @@ def converged(res: AdmmResiduals, abs_tol: float = 1e-3,
         eps_dual = torch.sqrt(res.n_primal) * abs_tol + rel_tol * res.scale_dual
         return (res.primal < eps_pri) & (res.dual < eps_dual)
     return (res.primal < primal_tol) & (res.dual < dual_tol)
+
+
+def record_residuals(primal, dual, *, iteration=None, registry=None,
+                     **labels) -> None:
+    """Write one ADMM iteration's primal and dual residuals into the
+    telemetry registry: the gauges ``admm_primal_residual`` and
+    ``admm_dual_residual`` (labeled by ``iteration`` and any extra labels,
+    such as ``agent=...``) and the counter ``admm_iterations_total`` (the
+    extra labels only). Call with host numbers; a no-op when telemetry is
+    disabled."""
+    from agentlib_mpc_torch import telemetry
+
+    reg = registry or telemetry.metrics()
+    if not reg.enabled:
+        return
+    lbl = dict(labels)
+    if iteration is not None:
+        lbl["iteration"] = str(int(iteration))
+    reg.gauge("admm_primal_residual",
+              "ADMM primal residual of the labeled iteration"
+              ).set(float(primal), **lbl)
+    reg.gauge("admm_dual_residual",
+              "ADMM dual residual of the labeled iteration"
+              ).set(float(dual), **lbl)
+    reg.counter("admm_iterations_total",
+                "global ADMM iterations recorded").inc(**labels)
+
+
+def trim_residuals(start_iteration: int, end_iteration: int, *,
+                   registry=None, **labels) -> None:
+    """Remove the per-iteration residual gauges of the iterations in
+    ``[start_iteration, end_iteration)`` for one label set: a round shorter
+    than the one before overwrites only its own iterations, and the
+    longer round's tail would otherwise stay beside them."""
+    from agentlib_mpc_torch import telemetry
+
+    reg = registry or telemetry.metrics()
+    prim = reg.gauge("admm_primal_residual",
+                     "ADMM primal residual of the labeled iteration")
+    dual = reg.gauge("admm_dual_residual",
+                     "ADMM dual residual of the labeled iteration")
+    for k in range(start_iteration, end_iteration):
+        prim.remove(iteration=str(k), **labels)
+        dual.remove(iteration=str(k), **labels)
 
 
 def vary_penalty(rho, res: AdmmResiduals, threshold: float = 10.0,

@@ -32,7 +32,28 @@
 - :func:`admm_realtime_pair_configs`: the wall-clock pair of
   ``tests/test_admm_realtime.py``: the same two models as ``admm``
   modules (N=4, a step every 8 s, 3 ADMM iterations, a 0.3 s
-  registration window, budget 25, precompiled), wire alias ``air``.
+  registration window, budget 25, precompiled), wire alias ``air``;
+- :func:`coordinator_pair_configs`: ``tests/test_coordinator.py``'s
+  coordinator (``admm_coordinator``: 12 ADMM iterations at most, rho 10,
+  abs_tol 1e-4, rel_tol 1e-3, penalty change threshold 10), the room and
+  the cooler as ``admm_coordinated`` participants (budget 40) coupled on
+  ``mDotCoolAir``, and the simulated room;
+- :func:`admm_4rooms_coordinator_configs`: the ten agents of
+  ``examples/admm_4rooms_coordinator.py``: the coordinator (15 ADMM
+  iterations at most, rho 10, the tolerances and penalty change above),
+  four ``CooledRoom`` participants with heat loads 80, 110, 140 and 170 W,
+  each coupled on its own air flow ``mDotCoolAir_i``, the
+  ``AirHandlingUnit`` participant (four controls under the shared capacity
+  0.075 m³/s, four output couplings), budget 60, and the four simulated
+  rooms;
+- :func:`exchange_admm_4rooms_configs`: the nine agents of
+  ``examples/exchange_admm_4rooms.py``: four ``ExchangeRoom`` agents and the
+  ``AirSupplier``, each an ``admm_local`` module (12 ADMM iterations, rho
+  50, budget 60) on the one exchange alias ``air_balance``, and the four
+  simulated rooms (``rooms`` picks a subset of the rooms).
+
+The three coordinator and four-room configs use degree-2 Legendre
+collocation, N=8 and a step every 300 s, as their sources do.
 
 Each takes a ``solver`` dict merged over its solver options (for example
 ``{"kkt_method": "ldl"}``). Run them with
@@ -539,3 +560,207 @@ def admm_realtime_pair_configs(solver: dict | None = None):
         controls=[{"name": "mDot", "value": 0.02, "ub": 0.05, "lb": 0.0}],
         extra={"parameters": [{"name": "r_mDot", "value": 1.0}]})
     return [room, cooler]
+
+
+def coordinator_pair_configs(solver: dict | None = None):
+    """tests/test_coordinator.py's coordinator, room, cooler and
+    simulator."""
+    coordinator = {
+        "id": "Coordinator",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "coordinator", "type": "admm_coordinator",
+             "time_step": ADMM_DT, "prediction_horizon": 8,
+             "admm_iter_max": 12, "penalty_factor": 10.0,
+             "abs_tol": 1e-4, "rel_tol": 1e-3,
+             "penalty_change_threshold": 10.0},
+        ],
+    }
+
+    def employee(aid, model, couplings, controls, extra):
+        backend = _admm_backend(model, solver, discretization_options={
+            "collocation_order": 2, "collocation_method": "legendre"})
+        return {"id": aid, "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "admm", "type": "admm_coordinated",
+             "coordinator": "Coordinator", "registration_interval": 30.0,
+             "optimization_backend": backend, "time_step": ADMM_DT,
+             "prediction_horizon": 8, "couplings": couplings,
+             "controls": controls, **extra},
+        ]}
+
+    room = employee(
+        "CooledRoom", "CooledRoom",
+        couplings=[{"name": "mDot", "alias": "mDotCoolAir", "value": 0.02,
+                    "ub": 0.05, "lb": 0.0}],
+        controls=[],
+        extra={"inputs": [{"name": "load", "value": 150},
+                          {"name": "T_in", "value": 290.15},
+                          {"name": "T_upper", "value": ADMM_UB}],
+               "states": [{"name": "T", "value": ADMM_START, "ub": 303.15,
+                           "lb": 288.15, "alias": "T",
+                           "source": "Simulation"}],
+               "parameters": [{"name": "s_T", "value": 1.0}]})
+    cooler = employee(
+        "Cooler", "Cooler",
+        couplings=[{"name": "mDot_out", "alias": "mDotCoolAir",
+                    "value": 0.02}],
+        controls=[{"name": "mDot", "value": 0.02, "ub": 0.05, "lb": 0.0}],
+        extra={"parameters": [{"name": "r_mDot", "value": 1.0}]})
+    sim = {
+        "id": "Simulation",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "simulator", "type": "simulator",
+             "model": {"class": "CooledRoom",
+                       "states": [{"name": "T", "value": ADMM_START}]},
+             "t_sample": 60,
+             "outputs": [{"name": "T_out", "value": ADMM_START,
+                          "alias": "T"}],
+             "inputs": [{"name": "mDot", "value": 0.02, "alias": "mDot"}]},
+        ],
+    }
+    return [coordinator, room, cooler, sim]
+
+
+#: examples/admm_4rooms_coordinator.py and examples/exchange_admm_4rooms.py:
+#: the rooms' heat loads (W), comfort bound and start temperature (K), the
+#: AHU's shared capacity (m³/s) and the exchange alias
+FOUR_ROOM_LOADS = (80.0, 110.0, 140.0, 170.0)
+FOUR_ROOM_UB, FOUR_ROOM_START = 295.15, 298.16
+AHU_CAPACITY = 0.075
+EXCHANGE_ALIAS = "air_balance"
+
+
+def _four_room_backend(model: str, solver: dict | None) -> dict:
+    return {"type": "jax_admm", "model": {"class": model},
+            "discretization_options": {"collocation_order": 2,
+                                       "collocation_method": "legendre"},
+            "solver": {"max_iter": 60, **(solver or {})}}
+
+
+def _four_room_sim(i: int, model: str) -> dict:
+    return {
+        "id": f"Simulation_{i}",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "simulator", "type": "simulator",
+             "model": {"class": model,
+                       "states": [{"name": "T", "value": FOUR_ROOM_START}],
+                       "inputs": [{"name": "load",
+                                   "value": FOUR_ROOM_LOADS[i - 1]}]},
+             "t_sample": 60,
+             "outputs": [{"name": "T_out", "value": FOUR_ROOM_START,
+                          "alias": f"T_{i}"}],
+             "inputs": [{"name": "mDot", "value": 0.02,
+                         "alias": f"mDot_{i}"}]},
+        ],
+    }
+
+
+def _four_room_inputs(i: int) -> dict:
+    return {
+        "parameters": [{"name": "s_T", "value": 1.0}],
+        "inputs": [{"name": "load", "value": FOUR_ROOM_LOADS[i - 1]},
+                   {"name": "T_in", "value": 290.15},
+                   {"name": "T_upper", "value": FOUR_ROOM_UB}],
+        "states": [{"name": "T", "value": FOUR_ROOM_START, "ub": 303.15,
+                    "lb": 288.15, "alias": f"T_{i}",
+                    "source": f"Simulation_{i}"}],
+    }
+
+
+def admm_4rooms_coordinator_configs(admm_iter_max: int = 15,
+                                    penalty_factor: float = 10.0,
+                                    solver: dict | None = None):
+    """examples/admm_4rooms_coordinator.py's coordinator, four rooms, AHU
+    and four simulators."""
+    coordinator = {
+        "id": "Coordinator",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "coordinator", "type": "admm_coordinator",
+             "time_step": ADMM_DT, "prediction_horizon": 8,
+             "admm_iter_max": admm_iter_max,
+             "penalty_factor": penalty_factor,
+             "abs_tol": 1e-4, "rel_tol": 1e-3,
+             "penalty_change_threshold": 10.0},
+        ],
+    }
+    participant = {"module_id": "admm", "type": "admm_coordinated",
+                   "coordinator": "Coordinator",
+                   "registration_interval": 30.0, "time_step": ADMM_DT,
+                   "prediction_horizon": 8}
+    rooms = [{
+        "id": f"Room_{i}",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {**participant,
+             "optimization_backend": _four_room_backend("CooledRoom",
+                                                        solver),
+             **_four_room_inputs(i),
+             "controls": [],
+             "couplings": [{"name": "mDot", "alias": f"mDotCoolAir_{i}",
+                            "value": 0.02, "ub": 0.05, "lb": 0.0}]},
+        ],
+    } for i in range(1, 5)]
+    ahu = {
+        "id": "AHU",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {**participant,
+             "optimization_backend": _four_room_backend("AirHandlingUnit",
+                                                        solver),
+             "parameters": [{"name": "r_mDot", "value": 1.0},
+                            {"name": "mDot_max", "value": AHU_CAPACITY}],
+             "controls": [{"name": f"mDot_{i}", "value": 0.02, "ub": 0.05,
+                           "lb": 0.0, "alias": f"mDot_{i}"}
+                          for i in range(1, 5)],
+             "couplings": [{"name": f"mDot_out_{i}",
+                            "alias": f"mDotCoolAir_{i}", "value": 0.02}
+                           for i in range(1, 5)]},
+        ],
+    }
+    sims = [_four_room_sim(i, "CooledRoom") for i in range(1, 5)]
+    return [coordinator, *rooms, ahu, *sims]
+
+
+def exchange_admm_4rooms_configs(max_iterations: int = 12,
+                                 penalty_factor: float = 50.0,
+                                 rooms=(1, 2, 3, 4),
+                                 solver: dict | None = None):
+    """examples/exchange_admm_4rooms.py's rooms, supplier and simulators
+    (the rooms numbered in ``rooms``)."""
+    admm = {"module_id": "admm", "type": "admm_local", "time_step": ADMM_DT,
+            "prediction_horizon": 8, "max_iterations": max_iterations,
+            "penalty_factor": penalty_factor}
+    agents = [{
+        "id": f"Room_{i}",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {**admm,
+             "optimization_backend": _four_room_backend("ExchangeRoom",
+                                                        solver),
+             **_four_room_inputs(i),
+             "controls": [{"name": "mDot", "value": 0.02, "ub": 0.05,
+                           "lb": 0.0, "alias": f"mDot_{i}"}],
+             "exchange": [{"name": "mDot_out", "alias": EXCHANGE_ALIAS,
+                           "value": 0.02, "ub": 0.05, "lb": 0.0}]},
+        ],
+    } for i in rooms]
+    supplier = {
+        "id": "Supplier",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {**admm,
+             "optimization_backend": _four_room_backend("AirSupplier",
+                                                        solver),
+             "parameters": [{"name": "r_mDot", "value": 1.0}],
+             "controls": [{"name": "mDot", "value": 0.08, "ub": 0.2,
+                           "lb": 0.0, "alias": "mDot_supply"}],
+             "exchange": [{"name": "mDot_net", "alias": EXCHANGE_ALIAS,
+                           "value": -0.08, "ub": 0.0, "lb": -0.2}]},
+        ],
+    }
+    sims = [_four_room_sim(i, "ExchangeRoom") for i in rooms]
+    return [*agents, supplier, *sims]

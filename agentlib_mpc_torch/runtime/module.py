@@ -41,8 +41,6 @@ MODULE_TYPES: dict[str, Type["BaseModule"]] = {}
 #: module types of the JAX package whose slice of the port has not come
 #: yet, with the ROADMAP Queue 1 item that brings each
 DEFERRED_MODULE_TYPES: dict[str, str] = {
-    **dict.fromkeys(("admm_coordinator", "admm_coordinated"),
-                    "2b-ii (the ADMM coordinator and exchange ADMM)"),
     **dict.fromkeys(("ml_simulator", "ann_trainer", "gpr_trainer",
                      "linreg_trainer", "keras_ann_trainer"), "3 (ML)"),
 }

@@ -2,8 +2,9 @@
 
 The part of ``agentlib_mpc_tpu/telemetry/`` that the ported call sites
 use — the data broker's counters and dispatch histogram, the actuation
-guard's level gauge and counters, the backends' solver families and the
-``backend.solve`` span — with the JAX package's names, labels and
+guard's level gauge and counters, the backends' solver families, the
+``backend.solve`` span and the ADMM residual gauges
+(``ops.admm.record_residuals``) — with the JAX package's names, labels and
 semantics (``metrics().get`` returns a counter's or gauge's value and a
 histogram's observation count). Every write sits behind :func:`enabled`
 (on by default; ``configure(enabled=False)`` turns writes into no-ops).
@@ -59,6 +60,14 @@ class _Family:
         with self._registry._lock:
             return self._values.get(_label_key(labels))
 
+    def remove(self, **labels) -> None:
+        """Drop the sample of one label set (a no-op when absent), for
+        label sets that go stale, such as the per-iteration gauges of a
+        round that ran shorter than the one before. Runs whether or not
+        telemetry is enabled."""
+        with self._registry._lock:
+            self._values.pop(_label_key(labels), None)
+
 
 class Counter(_Family):
     kind = "counter"
@@ -102,6 +111,11 @@ class Histogram(_Family):
                                              [0] * (len(self.buckets) + 1))
             counts[slot] += 1
             self._values[key] = self._values.get(key, 0) + 1
+
+    def remove(self, **labels) -> None:
+        with self._registry._lock:
+            super().remove(**labels)
+            self._counts.pop(_label_key(labels), None)
 
 
 class MetricsRegistry:

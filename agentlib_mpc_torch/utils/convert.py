@@ -28,7 +28,11 @@ framework's). A fleet's per-group stacked parameters come in through
 Floating leaves take the given dtype; integer and boolean leaves keep
 theirs. A decentralized ADMM module's own state, the local, mean and
 multiplier trajectories it keeps on the host, comes in through
-:func:`admm_values_from_jax`.
+:func:`admm_values_from_jax`, and an ADMM coordinator's (per coupling the
+participants' local trajectories and multipliers by source, the mean and
+the mean before it, exchange deviations and the shared multiplier, the
+penalty and the participants' statuses) through
+:func:`coordinator_state_from_jax` into :func:`load_coordinator_state`.
 """
 
 from __future__ import annotations
@@ -184,3 +188,87 @@ def admm_values_from_jax(values: Mapping) -> dict:
     state on the host."""
     return {str(k): np.array(np.asarray(v), dtype=np.float64)
             for k, v in values.items()}
+
+
+def _source_key(source) -> tuple:
+    return (source.agent_id, source.module_id)
+
+
+def _arrays_by_source(mapping) -> dict:
+    return {_source_key(src): np.array(np.asarray(v), dtype=np.float64)
+            for src, v in mapping.items()}
+
+
+def _optional(arr):
+    return None if arr is None else np.array(np.asarray(arr),
+                                             dtype=np.float64)
+
+
+def coordinator_state_from_jax(coord) -> dict:
+    """An ADMM coordinator's state as plain data, from either framework's
+    coordinator (both keep it as host numpy): sources as
+    ``(agent_id, module_id)``, statuses by their names, trajectories as
+    float64 numpy copies. :func:`load_coordinator_state` puts it into the
+    port's coordinator."""
+    consensus = {
+        alias: {"local": _arrays_by_source(var.local_trajectories),
+                "multipliers": _arrays_by_source(var.multipliers),
+                "mean": _optional(var.mean_trajectory),
+                "last_mean": _optional(var._last_mean)}
+        for alias, var in coord._coupling_variables.items()}
+    exchange = {
+        alias: {"local": _arrays_by_source(var.local_trajectories),
+                "diff": _arrays_by_source(var.diff_trajectories),
+                "multiplier": _optional(var.multiplier),
+                "mean": _optional(var.mean_trajectory),
+                "last_mean": _optional(var._last_mean)}
+        for alias, var in coord._exchange_variables.items()}
+    agents = {_source_key(src): {"status": entry.status.value,
+                                 "coup_vars": list(entry.coup_vars),
+                                 "exchange_vars": list(entry.exchange_vars),
+                                 "missed_rounds": int(entry.missed_rounds)}
+              for src, entry in coord.agent_dict.items()}
+    return {"consensus": consensus, "exchange": exchange, "agents": agents,
+            "penalty_parameter": float(coord.penalty_parameter)}
+
+
+def load_coordinator_state(coord, state: Mapping) -> None:
+    """Replace the port's coordinator ``coord``'s state by ``state`` (from
+    :func:`coordinator_state_from_jax`)."""
+    from agentlib_mpc_torch.modules.coordinator import (
+        AgentEntry,
+        AgentStatus,
+        ConsensusVariable,
+        ExchangeVariable,
+    )
+    from agentlib_mpc_torch.runtime.variables import Source
+
+    def by_source(mapping):
+        return {Source(agent_id=a, module_id=m): np.array(v)
+                for (a, m), v in mapping.items()}
+
+    with coord._registration_lock:
+        coord._coupling_variables = {}
+        for alias, data in state["consensus"].items():
+            var = coord._coupling_variables[alias] = ConsensusVariable()
+            var.local_trajectories = by_source(data["local"])
+            var.multipliers = by_source(data["multipliers"])
+            var.mean_trajectory = _optional(data["mean"])
+            var._last_mean = _optional(data["last_mean"])
+        coord._exchange_variables = {}
+        for alias, data in state["exchange"].items():
+            var = coord._exchange_variables[alias] = ExchangeVariable()
+            var.local_trajectories = by_source(data["local"])
+            var.diff_trajectories = by_source(data["diff"])
+            var.multiplier = _optional(data["multiplier"])
+            var.mean_trajectory = _optional(data["mean"])
+            var._last_mean = _optional(data["last_mean"])
+        coord.agent_dict = {
+            Source(agent_id=a, module_id=m): AgentEntry(
+                source=Source(agent_id=a, module_id=m),
+                status=AgentStatus(entry["status"]),
+                coup_vars=list(entry["coup_vars"]),
+                exchange_vars=list(entry["exchange_vars"]),
+                missed_rounds=int(entry["missed_rounds"]))
+            for (a, m), entry in state["agents"].items()}
+        coord.penalty_parameter = float(state["penalty_parameter"])

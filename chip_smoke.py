@@ -41,9 +41,12 @@ non-zero without printing a result:
               one cold and one warm step in f32 with the launch counters
               reset just before and read just after (launches must equal
               97 factor and 1 254 solve launches per interior-point
-              iteration), a profiled warm step, then the quality gate: the
-              same steps in f64 on the card with kkt_method="lu" (and in
-              f32 with "lu", the dense path's own f32 round-off).
+              iteration), then the quality gate: the same steps in f64 on
+              the card with kkt_method="lu" (and in f32 with "lu", the
+              dense path's own f32 round-off); the seconds of each part.
+              (No profiled step: processing its ~115 000 device events
+              takes ~28 s of the time limit; PERF.md keeps both day-ahead
+              profiles.)
 8. shooting — 256 zones at N=96 by multiple shooting (rk4, 3 substeps;
               KKT 386 of 97 stages of 5): one batched cold solve on the
               stage sweep, held against the same solve in f64 with "lu"
@@ -70,9 +73,8 @@ non-zero without printing a result:
               derivatives on the card.
 11. sparse_day_ahead — the zone fleet at N=96 with "auto", now sparse:
               the same cold and warm steps as long_horizon (which forces
-              dense derivatives) with launch counts and a profiled warm
-              step, whose ``ipm.eval_jac``/``ipm.assemble`` host times
-              stand beside long_horizon's; held against long_horizon's f64
+              dense derivatives) with launch counts and the seconds of
+              each part; held against long_horizon's f64
               LU outputs (reused) with its gate, and within 1e-3 of its
               dense f32 run on z̄.
 12. fused_slice — ``bench.py``'s ``--mesh-ab`` workload at one device
@@ -136,7 +138,8 @@ non-zero without printing a result:
               search's noise allowance as no progress, its MPC failed 3
               of 31 solves here in f32: ``scripts/module_f32_witness.py``.)
 18. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
-              agent for 7 200 s in f64: the relaxed program on the QP at
+              agent for 3 600 s in f64 (half the example's run, for the
+              script's time limit): the relaxed program on the QP at
               (1, 34), the CIA schedule from the native library
               (``csrc/cia.cpp``, never the Python version), the fixed
               program at (1, 26); launches exact per solve; the example's
@@ -154,9 +157,11 @@ non-zero without printing a result:
               incumbent at most the rounding heuristic's
               (``bb_proven_optimal`` and ``bb_improved_on_heuristic`` per
               step in the line). module_one_room, module_linear_qp,
-              module_mhe and module_admm each have a ``*_profile`` line.
+              module_mhe, module_admm and module_admm_exchange each have a
+              ``*_profile`` line.
 20. module_admm — ``examples/admm_cooled_room.py``'s three agents for
-              1 800 s in f32: the room and the cooler as ``admm_local``
+              900 s in f32 (three control steps, for the script's time
+              limit): the room and the cooler as ``admm_local``
               modules over ``jax_admm``, whose augmented problems route by
               their certificates (the room's NLP at (1, 74), one factor
               and three solves per iteration; the cooler, which has no
@@ -181,14 +186,45 @@ non-zero without printing a result:
               worker thread on the default stream, the room's mean air flow
               finite with shape (4,), no worker alive afterwards, and the
               launches exact per iteration over both threads.
-22. path_shapes — every (B, M) a path launched, in each type it launched
+22. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
+              agents for 600 s (two rounds) in f64 (in f32 the JAX
+              package's loop fails two room solves on the pivot-free LDLᵀ:
+              ``scripts/admm_f32_witness.py``): an ``admm_coordinator``
+              drives four ``CooledRoom`` participants (NLP at (1, 74), one
+              factor and three solves per iteration) and the AHU, a
+              zero-state QP with the shared capacity constraint and four
+              output couplings ((1, 32), one factor and six solves per
+              iteration). Five participants registered and four coupling
+              aliases before the first round; the ADMM iterations of each
+              round as in the same loop in f64 on the CPU; at most one
+              failed solve, none a room's (each printed); every round
+              assessed by each participant's guard; the example's gates
+              (the building cools, the peak total actuated flow at most
+              0.075 · 1.10 m³/s); each room's final temperature within
+              0.01 K and mean flow within 1e-5 m³/s of the CPU's; the
+              allocation order (room 4's mean flow above room 1's) printed
+              with its margin; per round the residual trails and rho.
+23. module_admm_exchange — ``examples/exchange_admm_4rooms.py``'s nine
+              agents for 600 s (two steps) in f32: four ``ExchangeRoom``
+              agents (NLP at (1, 74), 1:3) and the supplier (QP at (1, 8),
+              1:6) as ``admm_local`` modules on one exchange alias; every
+              solve successful at guard level 0 with no warm-start reset,
+              12 ADMM iterations per step on all five, each registered its
+              four peers; the example's balance gate (supplier against the
+              rooms' total within 0.02 m³/s) and the building cools; each
+              room's final temperature within 0.01 K and the supplier's
+              flow within 1e-4 m³/s of the same loop in f64 on the CPU; a
+              profiled room solve.
+24. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
 
-The module phases' f64 CPU references run in subprocesses of this script
-(``--cpu-reference NAME``) started at the beginning, beside the card's
-phases, and are ended with the script; they and the CIA replay
+The f64 CPU references of the slice, qp_slice, fused_slice and
+fused_linear paths and of the module phases run in subprocesses of this
+script (``--cpu-reference NAME``) started at the beginning, beside the
+card's phases (the module phases' at a lower scheduling priority), and are
+ended with the script; they and the CIA replay
 (``--cpu-replay NAME``) run on the last five of the cores this process
 may use, the card's process on the others (where there are eight or
 more; the ``summary`` line names them). Then the run's wall time, the
@@ -402,9 +438,10 @@ MHE_LOAD_RTOL = 0.01
 #: examples/minlp_switched_room.py's gates: the actuated chiller command
 #: binary, the zone below UB + 0.5 K, a duty cycle strictly inside (0, 1)
 MINLP_UB_MARGIN_K = 0.5
-#: the jax_cia agent for the example's whole run, against the same loop in
-#: f64 on the CPU: final zone temperature (K) and duty cycle
-MINLP_CIA_UNTIL = 7200.0
+#: the jax_cia agent for half the example's run (12 controller steps; cut
+#: from 7 200 s for the script's time limit), against the same loop in f64
+#: on the CPU: final zone temperature (K) and duty cycle
+MINLP_CIA_UNTIL = 3600.0
 MINLP_CIA_T_TOL_K = 0.05
 MINLP_CIA_DUTY_TOL = 0.02
 #: each solve of the card's f64 CIA loop replayed on the CPU in f64 (plain
@@ -429,12 +466,13 @@ MINLP_BB_UNTIL = 2100.0
 #: iterations per step) and its plant, in float32 on the card (with the
 #: plain LDLᵀ on the CPU the port's float32 loop fails none of its 36 + 36
 #: solves, the JAX package's 1: scripts/admm_f32_witness.py, ``loop``
-#: lines), to 1 800 s: the depth of tests/test_admm_module.py (6 control
-#: steps, 36 solves per agent). Its gates: the room cools and ends below
+#: lines), to 900 s (3 control steps, 18 solves per agent; cut from the
+#: 1 800 s of tests/test_admm_module.py for the script's time limit). Its
+#: gates: the room cools and ends below
 #: 297.0 K, the actuated air flow at most 0.05 m³/s, and at the last
 #: step's last iteration the two agents' air-flow trajectories within
 #: 5e-3 m³/s of each other (tests/test_admm_module.py:127-140)
-ADMM_UNTIL = 1800.0
+ADMM_UNTIL = 900.0
 ADMM_ITERATIONS = 6
 ADMM_T_LIMIT_K = 297.0
 ADMM_MDOT_MAX = 0.05 + 1e-9
@@ -454,6 +492,40 @@ ADMM_T_F64_TOL_K = 0.02
 #: float32 cannot meet the test's gates
 ADMM_RT_UNTIL = 10.0
 ADMM_RT_DTYPE = "float64"
+#: the two four-room examples at their full width, to 600 s (two control
+#: steps: one cold, one warm). examples/admm_4rooms_coordinator.py's
+#: coordinator, four CooledRoom participants, the AHU and four simulators
+#: in float64: on the pivot-free LDLᵀ the JAX package's float32 loop fails
+#: two room solves (KKT errors near 300), its float64 loop only the AHU at
+#: t = 300 s, on LU and LDLᵀ alike (scripts/admm_f32_witness.py, ``coord4``
+#: and ``failed`` lines). examples/exchange_admm_4rooms.py's four
+#: ExchangeRoom agents and the supplier (admm_local, 12 iterations) and four
+#: simulators in float32, the module path's default: clean in both types and
+#: both packages there
+FOUR_ROOM_UNTIL = 600.0
+COORD_DTYPE, EXCHANGE_DTYPE = "float64", "float32"
+ROOMS = tuple(f"Room_{i}" for i in range(1, 5))
+SIMULATORS = tuple((f"Simulation_{i}", "simulator") for i in range(1, 5))
+#: the coordinator loop may fail one solve of its 150, and no room's (the
+#: JAX package's own float64 loop fails the AHU's at t = 300 s)
+COORD_MAX_FAILED = 1
+#: each room's final temperature (K) and mean actuated flow (m³/s) against
+#: the same loop in f64 on the CPU (plain LDLᵀ). Set before any card run at
+#: about 100× and 12× the JAX package's own f32/f64 gap at this depth
+#: (1e-4 K, 8e-7 m³/s), to leave room for a failed AHU solve that falls one
+#: iteration apart on the card
+COORD_T_TOL_K, COORD_FLOW_TOL = 0.01, 1e-5
+#: examples/admm_4rooms_coordinator.py's capacity gate on the peak total
+#: actuated flow
+COORD_PEAK_FLOW = 0.075 * 1.10 + 1e-9
+#: the exchange loop: every solve succeeds; 12 ADMM iterations per step on
+#: every agent; the example's balance gate |supplier − total room flow| at
+#: the last step; each room's final temperature within 0.01 K of f64 on the
+#: CPU (the JAX package's own f32/f64 gap is at most 7e-5 K) and the
+#: supplier's flow within 1e-4 m³/s of it
+EXCHANGE_ITERATIONS = 12
+EXCHANGE_BALANCE_TOL = 0.02
+EXCHANGE_T_TOL_K, EXCHANGE_SUPPLY_TOL = 0.01, 1e-4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -909,13 +981,15 @@ def phase_profile(torch, run, warm_ms, name="profile"):
     return record
 
 
-def slice_reference(torch) -> dict:
-    """The slice's steps in f64 with the plain versions on the CPU: the
-    carried state of every step, as lists, and the seconds they took."""
+def slice_reference(torch, **fleet) -> dict:
+    """The slice's steps (``fleet``: the linear fleet's, ``model=`` and
+    ``inner=`` of ``build_step``) in f64 with the plain versions on the
+    CPU: the carried state of every step, as lists, and the seconds they
+    took."""
     from agentlib_mpc_torch.parallel.admm_step import N_AGENTS, build_step
 
     step, args = build_step(N_AGENTS, {"kkt_method": "ldl"}, device="cpu",
-                            dtype=torch.float64, record_stats=True)
+                            dtype=torch.float64, record_stats=True, **fleet)
     t0 = time.perf_counter()
     outs64, _, _ = run_steps(torch, step, args, lambda: None)
     return {"seconds": time.perf_counter() - t0,
@@ -1003,11 +1077,11 @@ def ip_iterations(stats) -> int:
 def phase_long_horizon(torch, dev, smi):
     """The 256-zone step a day ahead, "auto" on the stage sweep with dense
     derivatives. Returns the launch totals and, for sparse_day_ahead, the
-    f32 and f64 LU outputs and the profiled ``ipm.*`` host times."""
+    f32 and f64 LU outputs and the median warm step."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.ops.solver import JAC_PATHS, KKT_PATHS
     from agentlib_mpc_torch.parallel.admm_step import (
-        N_AGENTS, build_step, warm_step, zone_ocp)
+        N_AGENTS, build_step, zone_ocp)
 
     ocp = zone_ocp(LONG_N, LONG_DT)
     part = ocp.stage_partition
@@ -1016,14 +1090,19 @@ def phase_long_horizon(torch, dev, smi):
           f"auto does not resolve to stage at KKT {size}")
     # dense derivatives forced: this path and its numbers stay PR 3's
     # (sparse_day_ahead runs the same steps on the sparse pipeline)
+    parts = {}
+    t0 = time.perf_counter()
     step, args = build_step(N_AGENTS, {"jacobian": "dense"}, device=dev,
                             dtype=torch.float32, record_stats=True,
                             horizon=LONG_N, dt=LONG_DT)
+    parts["build"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
+    t0 = time.perf_counter()
     outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
                                    LONG_N_WARM)
+    parts["steps"] = time.perf_counter() - t0
     totals = launch_totals(kkt)
     copied = kkt.ldl_solve_many.copied_bytes
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1063,22 +1142,20 @@ def phase_long_horizon(torch, dev, smi):
           "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
           "spread": spread(ocp, carry), "peak_memory_bytes": peak,
           "nvidia_smi": smi})
-    profile = phase_profile(torch,
-                            lambda: warm_step(step, args, outs[-1][0]),
-                            warm_ms, name="long_horizon_profile")
-
     # quality gate: the same steps in f64 on the card through pivoted LU,
     # and in f32 through dense LU (the f32 round-off of the dense path)
     refs, seconds = {}, {}
     for name, dtype in (("f64", torch.float64), ("lu32", torch.float32)):
+        t0 = time.perf_counter()
         step_r, args_r = build_step(N_AGENTS, {"kkt_method": "lu"},
                                     device=dev, dtype=dtype,
                                     record_stats=True, horizon=LONG_N,
                                     dt=LONG_DT)
+        parts[f"build_{name}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         refs[name], _, _ = run_steps(torch, step_r, args_r,
                                      torch.cuda.synchronize, LONG_N_WARM)
-        seconds[name] = time.perf_counter() - t0
+        seconds[name] = parts[f"steps_{name}"] = time.perf_counter() - t0
     rows = []
     for k, (o32, o64, olu) in enumerate(zip(outs, refs["f64"],
                                             refs["lu32"])):
@@ -1114,9 +1191,9 @@ def phase_long_horizon(torch, dev, smi):
           "reference": "f64 lu on the card; f32 lu on the card (lu32)",
           "seconds": seconds, "zbar_tol": LONG_ZBAR_TOL,
           "spread_tol": LONG_SPREAD_TOL,
-          "sweep_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL, "steps": rows})
-    return totals, {"f32": outs, "f64": refs["f64"],
-                    "phases": profile["solver_phases"], "warm_ms": warm_ms}
+          "sweep_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL, "steps": rows,
+          "phase_seconds_by_part": parts})
+    return totals, {"f32": outs, "f64": refs["f64"], "warm_ms": warm_ms}
 
 
 def phase_shooting(torch, dev):
@@ -1392,10 +1469,11 @@ def phase_qp_slice(torch, dev, smi):
     return outs, totals, step, args, ms[0]
 
 
-def phase_qp_quality(torch, dev, outs32, step32, args32, qp_cold_ms):
-    """The linear fleet's QP steps against f64 on the CPU, one cold step
-    with the NLP inner solver on the card, and converged QP against
-    converged NLP solves of the same subproblems."""
+def phase_qp_quality(torch, dev, outs32, step32, args32, qp_cold_ms, ref):
+    """The linear fleet's QP steps against f64 on the CPU (``ref``, from
+    :func:`slice_reference`), one cold step with the NLP inner solver on
+    the card, and converged QP against converged NLP solves of the same
+    subproblems."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.ops.qp import solve_qp
     from agentlib_mpc_torch.ops.solver import SolverOptions, solve_nlp_batched
@@ -1404,13 +1482,9 @@ def phase_qp_quality(torch, dev, outs32, step32, args32, qp_cold_ms):
 
     ocp = step32.ocp
     before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
-    step64, args64 = build_step(N_AGENTS, {"kkt_method": "ldl"},
-                                device="cpu", dtype=torch.float64,
-                                record_stats=True, model="linear",
-                                inner="qp")
-    t0 = time.perf_counter()
-    outs64, _, _ = run_steps(torch, step64, args64, lambda: None)
-    seconds64 = time.perf_counter() - t0
+    seconds64 = ref["seconds"]
+    outs64 = [(tuple(torch.tensor(t, dtype=torch.float64) for t in carry),)
+              for carry in ref["carries"]]
     rows = linear_quality_rows(torch, ocp, outs32, outs64)
 
     # the JAX package's --qp-ab: one cold step of the same fleet through
@@ -1552,8 +1626,7 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     """The zone fleet a day ahead with "auto" (now the stage-sparse
     pipeline), held against long_horizon's outputs."""
     from agentlib_mpc_torch.ops import kkt
-    from agentlib_mpc_torch.parallel.admm_step import (
-        N_AGENTS, build_step, warm_step)
+    from agentlib_mpc_torch.parallel.admm_step import N_AGENTS, build_step
 
     t0 = time.perf_counter()
     step, args = build_step(N_AGENTS, device=dev, dtype=torch.float32,
@@ -1566,8 +1639,10 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kkt.reset_launch_counts()
+    t0 = time.perf_counter()
     outs, ms, launches = run_steps(torch, step, args, torch.cuda.synchronize,
                                    LONG_N_WARM)
+    steps_s = time.perf_counter() - t0
     totals = launch_totals(kkt)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = check_launches_per_iteration(
@@ -1587,14 +1662,9 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
           "lane_success_fraction": stats[3].double().mean(dim=1).tolist(),
           "spread": spread(ocp, carry), "peak_memory_bytes": peak,
           "nvidia_smi": smi})
-    profile = phase_profile(torch,
-                            lambda: warm_step(step, args, outs[-1][0]),
-                            warm_ms, name="sparse_day_ahead_profile")
-    ranges = ("ipm.eval_jac", "ipm.assemble", "ipm.factor", "ipm.resolve")
-    beside = {r: {"sparse_host_ms": profile["solver_phases"].get(
-                      r, {}).get("host_ms"),
-                  "dense_host_ms": lh["phases"].get(r, {}).get("host_ms")}
-              for r in ranges}
+    # no profiled step on either day-ahead path: processing one's ~115 000
+    # device events takes ~28 s of the time limit, and PERF.md keeps both
+    # profiles
     # quality: long_horizon's f64 LU outputs (reused) with its gate, and
     # its dense f32 run on z̄
     rows = []
@@ -1610,8 +1680,8 @@ def phase_sparse_day_ahead(torch, dev, smi, lh):
     emit({"phase": "sparse_day_ahead_quality",
           "reference": "long_horizon's f64 lu and dense f32 outputs",
           "zbar_tol": LONG_ZBAR_TOL, "spread_tol": LONG_SPREAD_TOL,
-          "sparse_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL,
-          "host_ms_sparse_vs_dense": beside, "steps": rows})
+          "sparse_vs_dense_tol": LONG_SWEEP_VS_DENSE_TOL, "steps": rows,
+          "phase_seconds_by_part": {"build": build_s, "steps": steps_s}})
     for row in rows:
         k = row["step"]
         check(row["zbar_max_abs_diff"] <= LONG_ZBAR_TOL,
@@ -1742,21 +1812,40 @@ def check_fused_launches(name, rows, cold_budget, warm_budget):
     return per_round
 
 
+def fused_reference(torch, model: str) -> dict:
+    """The fused engine's rounds (``model`` as :func:`fused_engine`) in f64
+    with the plain versions on the CPU, Boyd exits pinned: per round the
+    first control of every lane, z̄ and the ADMM iterations, as lists, and
+    the seconds they took."""
+    t0 = time.perf_counter()
+    engine, thetas, _, alias = fused_engine(torch, model, "cpu",
+                                            torch.float64, pinned=True,
+                                            kkt_method="ldl")
+    rows = fused_rounds(torch, engine, thetas, FUSED_QUALITY_STEPS,
+                        lambda: None)
+    return {"seconds": time.perf_counter() - t0,
+            "rounds": [{"u": r["trajs"][0]["u"][..., 0].tolist(),
+                        "zbar": r["state"].zbar[alias].tolist(),
+                        "iterations": int(r["stats"].iterations)}
+                       for r in rows]}
+
+
 def fused_quality_rows(torch, alias, rows, rows64):
     """Per round: z̄ and spread max|u − z̄| of the card's engine against
-    the CPU's f64 engine, and the per-lane |Δu| statistics."""
+    the CPU's f64 engine (``rows64``: :func:`fused_reference`'s rounds),
+    and the per-lane |Δu| statistics."""
     out = []
     for k, (r32, r64) in enumerate(zip(rows, rows64)):
         u32 = r32["trajs"][0]["u"][..., 0].double().cpu()
-        u64 = r64["trajs"][0]["u"][..., 0].double().cpu()
+        u64 = torch.tensor(r64["u"], dtype=torch.float64)
         z32 = r32["state"].zbar[alias].double().cpu()
-        z64 = r64["state"].zbar[alias].double().cpu()
+        z64 = torch.tensor(r64["zbar"], dtype=torch.float64)
         du = (u32 - u64).abs()
         outliers = du.amax(dim=-1) > QP_U_OUTLIER_W
         out.append({
             "round": k, "f64_finite": bool(torch.isfinite(u64).all()),
             "iterations": [int(r32["stats"].iterations),
-                           int(r64["stats"].iterations)],
+                           r64["iterations"]],
             "zbar_max_abs_diff": float((z32 - z64).abs().max()),
             "spread": float((u32 - z32).abs().max()),
             "spread_f64": float((u64 - z64).abs().max()),
@@ -1769,11 +1858,11 @@ def fused_quality_rows(torch, alias, rows, rows64):
     return out
 
 
-def phase_fused(torch, dev, smi, model: str):
+def phase_fused(torch, dev, smi, model: str, ref):
     """One fused engine at 256 zones on the card: launch counts of a cold
     and two warm rounds, a profiled warm round, the quality gate
-    against f64 on the CPU with pinned exits, and (zone fleet) a
-    quarantined NaN lane."""
+    against f64 on the CPU with pinned exits (``ref``, from
+    :func:`fused_reference`), and (zone fleet) a quarantined NaN lane."""
     from agentlib_mpc_torch.ops import kkt
     from agentlib_mpc_torch.parallel import admm_step
 
@@ -1824,12 +1913,7 @@ def phase_fused(torch, dev, smi, model: str):
     # quality: pinned exits, the card's engine against the CPU's f64 (the
     # linear fleet: FUSED_LINEAR_* above)
     before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
-    t0 = time.perf_counter()
-    e64, th64, _, _ = fused_engine(torch, model, "cpu", torch.float64,
-                                   pinned=True, kkt_method="ldl")
-    rows64 = fused_rounds(torch, e64, th64, FUSED_QUALITY_STEPS,
-                          lambda: None)
-    seconds64 = time.perf_counter() - t0
+    rows64, seconds64 = ref["rounds"], ref["seconds"]
     runs = {"f32 auto": (torch.float32, "auto")}
     if model == "linear":
         runs["f64 lu"] = (torch.float64, "lu")
@@ -2025,7 +2109,9 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
               instrument=None):
     """Build a LocalMAS on ``dev`` in ``dtype`` and run it ``until``: per
     solve its wall ms, stats row, guard level and (on the card) kernel
-    launches; the simulator's rows and its total wall time. Launch counts
+    launches; the simulators' rows and their total wall time (``sim_at``
+    is one (agent, module) pair or a list of them; ``rows`` holds the
+    first one's rows, ``sim_rows`` every one's by ``agent/module``). Launch counts
     are reset just before the run. With ``capture``, each solve's row also
     keeps its inputs and the warm state it started from (on the host),
     for :func:`replay_solves`. The backends of the modules ``extra_at``
@@ -2040,10 +2126,11 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
     mas = LocalMAS(configs, env={"rt": False}, device=dev, dtype=dtype)
     build_s = time.perf_counter() - t0
     mpc = mas.agents[mpc_at[0]].get_module(mpc_at[1])
-    sim = mas.agents[sim_at[0]].get_module(sim_at[1])
+    sim_pairs = [sim_at] if isinstance(sim_at[0], str) else list(sim_at)
+    sims = {f"{a}/{m}": mas.agents[a].get_module(m) for a, m in sim_pairs}
+    sim = next(iter(sims.values()))
     solves, sim_s = [], [0.0]
-    solve, sim_step, assess = mpc.backend.solve, sim.do_step, \
-        mpc.guard.assess
+    solve, assess = mpc.backend.solve, mpc.guard.assess
     extra = {}
     for agent, module_id in extra_at:
         module = mas.agents[agent].get_module(module_id)
@@ -2084,17 +2171,20 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
                               traj_relaxed=result.get("traj_relaxed"))
         return result
 
-    def timed_sim_step(*args):
-        t = time.perf_counter()
-        sim_step(*args)
-        sim_s[0] += time.perf_counter() - t
+    for module in sims.values():
+        def timed_sim_step(*args, _step=module.do_step):
+            t = time.perf_counter()
+            _step(*args)
+            sim_s[0] += time.perf_counter() - t
+
+        module.do_step = timed_sim_step
 
     def recorded_assess(*args, **kwargs):
         decision = assess(*args, **kwargs)
         solves[-1]["guard_level"] = mpc.guard.level
         return decision
 
-    mpc.backend.solve, sim.do_step = counted_solve, timed_sim_step
+    mpc.backend.solve = counted_solve
     mpc.guard.assess = recorded_assess
     if instrument is not None:
         instrument(mas)
@@ -2115,7 +2205,9 @@ def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
     return {"mas": mas, "mpc": mpc, "sim": sim, "solves": solves,
             "extra": extra, "totals": totals, "build_s": build_s,
             "wall_s": wall_s, "sim_s": sim_s[0],
-            "rows": [dict(r) for r in sim._rows]}
+            "rows": [dict(r) for r in sim._rows],
+            "sim_rows": {key: [dict(r) for r in module._rows]
+                         for key, module in sims.items()}}
 
 
 def replay_solves(torch, configs, mpc_at, run):
@@ -2224,6 +2316,16 @@ def reference_specs():
         "module_admm": (lambda: rc.admm_cooled_room_configs(solver=plain),
                         ("CooledRoom", "admm"), ("Simulation", "simulator"),
                         (("Cooler", "admm"),), ADMM_UNTIL),
+        "module_admm_coord": (
+            lambda: rc.admm_4rooms_coordinator_configs(solver=plain),
+            (ROOMS[0], "admm"), SIMULATORS,
+            tuple((aid, "admm") for aid in (*ROOMS[1:], "AHU")),
+            FOUR_ROOM_UNTIL),
+        "module_admm_exchange": (
+            lambda: rc.exchange_admm_4rooms_configs(solver=plain),
+            (ROOMS[0], "admm"), SIMULATORS,
+            tuple((aid, "admm") for aid in (*ROOMS[1:], "Supplier")),
+            FOUR_ROOM_UNTIL),
     }
 
 
@@ -2231,11 +2333,18 @@ def reference_run(name: str) -> dict:
     """One module phase's loop in f64 on the CPU with the plain LDLᵀ, as
     plain data: the simulator's rows, per solve its row (success,
     iterations, u0, ms, stats), the wall times, and the values the phase
-    reads off the finished loop (``"quality"``: the slice's steps)."""
+    reads off the finished loop; or a fleet path's f64 steps
+    (``"quality"``: the slice's, ``"qp_quality"``: the linear fleet's on
+    the QP) or rounds (``"fused_slice"``, ``"fused_linear"``)."""
     import torch
 
     if name == "quality":
         return slice_reference(torch)
+    if name == "qp_quality":
+        return slice_reference(torch, model="linear", inner="qp")
+    if name in ("fused_slice", "fused_linear"):
+        return fused_reference(torch, "zone" if name == "fused_slice"
+                               else "linear")
 
     configs, mpc_at, sim_at, extra_at, until = reference_specs()[name]
     run = drive_mas(torch, configs(), "cpu", torch.float64, until, mpc_at,
@@ -2254,6 +2363,13 @@ def reference_run(name: str) -> dict:
     if name == "module_admm":
         out["steps"] = admm_steps(
             run["mpc"], run["extra"]["Cooler/admm"]["module"])
+    if name == "module_admm_coord":
+        out["outcome"] = four_room_outcome(
+            run, coordinator=run["mas"].agents["Coordinator"]
+            .get_module("coordinator"))
+    if name == "module_admm_exchange":
+        out["outcome"] = four_room_outcome(
+            run, supplier=run["extra"]["Supplier/admm"]["module"])
     return out
 
 
@@ -2289,9 +2405,10 @@ def replay_specs():
 
 def split_cores():
     """(cores of this process, cores of its CPU subprocesses): the last
-    five cores this process may use go to the subprocesses (the slice's
-    and the five module phases' references, one thread each) where at
-    least three stay for the card's host thread; else no split."""
+    five cores this process may use go to the subprocesses (the four fleet
+    paths' and the seven module phases' references, one thread each)
+    where at least three stay for the card's host thread; else no
+    split."""
     cores = sorted(os.sched_getaffinity(0))
     if len(cores) >= 8:
         return cores[:-5], cores[-5:]
@@ -2299,25 +2416,34 @@ def split_cores():
 
 
 class References:
-    """The f64 CPU references of the module phases, each computed by a
-    subprocess of this script (``--cpu-reference NAME``, one CPU thread)
+    """The f64 CPU references of the fleet paths (``early``) and of the
+    module phases (``late``, needed later in the run: they run at a lower
+    scheduling priority, so the early ones finish first), each computed by
+    a subprocess of this script (``--cpu-reference NAME``, one CPU thread)
     started at once, and the CPU replays of card solves
     (``--cpu-replay NAME``, started by :meth:`replay`), all on the cores
     ``cores``; :meth:`get` waits for one, :meth:`close` ends every one
     still running."""
 
-    def __init__(self, names, cores):
+    def __init__(self, early, late, cores):
         self.env = {**os.environ, "OMP_NUM_THREADS": "1"}
         self.cores = cores
         self.procs = {name: self._start("--cpu-reference", name)
-                      for name in names}
+                      for name in early}
+        self.procs.update({name: self._start("--cpu-reference", name,
+                                             nice=10) for name in late})
 
-    def _start(self, flag: str, name: str, stdin=None):
+    def _start(self, flag: str, name: str, stdin=None, nice: int = 0):
         cores = self.cores
+
+        def pin():
+            os.sched_setaffinity(0, cores)
+            os.nice(nice)
+
         return subprocess.Popen(
             [sys.executable, __file__, flag, name], stdin=stdin,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=self.env, preexec_fn=lambda: os.sched_setaffinity(0, cores))
+            env=self.env, preexec_fn=pin)
 
     def replay(self, name: str, starts) -> None:
         """Replay the card solves ``starts`` of phase ``name`` on the CPU
@@ -2985,6 +3111,295 @@ def phase_module_admm_rt(torch, dev, smi):
     return totals
 
 
+def four_room_outcome(run, coordinator=None, supplier=None) -> dict:
+    """A four-room loop's outcome as plain data: each room's final
+    temperature and mean actuated air flow, whether the building cooled on
+    average, the peak total actuated flow and the allocation margin
+    (room 4's mean flow less room 1's); with ``coordinator`` its rounds
+    (per round the ADMM iterations and the primal and dual residual and
+    penalty trails); with ``supplier`` its last flow and the rooms' total
+    at the last plant step."""
+    rows = [run["sim_rows"][f"{a}/{m}"] for a, m in SIMULATORS]
+    temps = np.array([[r["T_out"] for r in rs] for rs in rows])
+    flows = np.array([[r["mDot"] for r in rs] for rs in rows])
+    total = flows.sum(axis=0)
+    out = {"final_room_temperature_K": temps[:, -1].tolist(),
+           "mean_flow": flows.mean(axis=1).tolist(),
+           "mean_flow_4_minus_1": float(flows[3].mean() - flows[0].mean()),
+           "building_cools": bool(temps[:, -1].mean() < temps[:, 0].mean()),
+           "peak_total_flow": float(total.max()),
+           "finite": bool(np.isfinite(temps).all()
+                          and np.isfinite(flows).all())}
+    if coordinator is not None:
+        stats = coordinator.results()
+        out["rounds"] = [{
+            "time": float(t), "iterations": len(g),
+            "primal_residual": g["primal_residual"].tolist(),
+            "dual_residual": g["dual_residual"].tolist(),
+            "penalty_parameter": g["penalty_parameter"].tolist()}
+            for t, g in stats.groupby(level="time")]
+    if supplier is not None:
+        out["supplier_flow"] = float(supplier.vars["mDot"].value)
+        out["total_room_flow_last"] = float(total[-1])
+    return out
+
+
+def four_room_agents(run, aids):
+    """Per solving agent of a four-room loop (``run`` from
+    :func:`drive_mas`, the first agent its ``mpc_at``, the others its
+    ``extra_at``): the module and its solve rows, each with the control
+    step and the ADMM iteration within it."""
+    out = {}
+    for k, aid in enumerate(aids):
+        if k == 0:
+            module, rows = run["mpc"], run["solves"]
+        else:
+            extra = run["extra"][f"{aid}/admm"]
+            module, rows = extra["module"], extra["solves"]
+        per_step: dict = {}
+        for row, it_row in zip(rows, module._iter_rows):
+            step = int(np.floor(it_row["time"] / module.time_step + 1e-9))
+            row["step"] = step
+            row["admm_iteration"] = per_step.get(step, 0)
+            per_step[step] = row["admm_iteration"] + 1
+        out[aid] = {"module": module, "rows": rows,
+                    "iterations_per_step": [per_step[k]
+                                            for k in sorted(per_step)]}
+    return out
+
+
+def check_four_room_launches(name, agents):
+    """Exact launches of every solve: one factor per inner iteration and
+    the solves of its path (3 for a room's NLP iteration, 6 for a
+    QP's)."""
+    for aid, a in agents.items():
+        backend = a["module"].backend
+        solves = 6 if backend.uses_qp_fast_path else per_factor(backend)
+        for k, row in enumerate(a["rows"]):
+            check(row["kkt_path"] == "ldl"
+                  and row["factor"] == row["iterations"]
+                  and row["solve"] == solves * row["iterations"],
+                  f"{name} ({aid}) solve {k}: {row['factor']} factor / "
+                  f"{row['solve']} solve launches for {row['iterations']} "
+                  f"iterations on {row['kkt_path']} (expected 1/{solves})")
+
+
+def four_room_summary(agents) -> dict:
+    return {aid: {"solves": len(a["rows"]),
+                  "first_solve_ms": a["rows"][0]["ms"],
+                  "warm_solve_ms_median": float(np.median(
+                      [r["ms"] for r in a["rows"][1:]])),
+                  "iterations_per_solve": [r["iterations"]
+                                           for r in a["rows"]],
+                  "admm_iterations_per_step": a["iterations_per_step"],
+                  "qp_fast_path": a["module"].backend.uses_qp_fast_path,
+                  "warm_start_resets": a["module"].backend.warm_start_resets,
+                  "guard_levels": [r["guard_level"] for r in a["rows"]
+                                   if "guard_level" in r]}
+            for aid, a in agents.items()}
+
+
+def phase_module_admm_coord(torch, dev, smi, ref):
+    """examples/admm_4rooms_coordinator.py's ten agents through LocalMAS on
+    the card in f64: the coordinator drives four CooledRoom participants
+    (augmented NLPs, KKT 74) and the AHU (a zero-state QP with the shared
+    capacity constraint, KKT 32) through 15 ADMM iterations per round,
+    held against the same loop in f64 on the CPU with the plain LDLᵀ."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    t_phase = time.perf_counter()
+    aids = (*ROOMS, "AHU")
+    seen = {}
+
+    def instrument(mas):
+        coord = mas.agents["Coordinator"].get_module("coordinator")
+        trigger = coord.trigger_optimizations
+
+        def first_trigger():
+            seen.setdefault("registered", sorted(
+                s.agent_id for s, e in coord.agent_dict.items()
+                if e.status.value != "pending"))
+            seen.setdefault("aliases", sorted(coord._coupling_variables))
+            trigger()
+
+        coord.trigger_optimizations = first_trigger
+
+    run = drive_mas(torch, rc.admm_4rooms_coordinator_configs(), dev,
+                    getattr(torch, COORD_DTYPE), FOUR_ROOM_UNTIL,
+                    (ROOMS[0], "admm"), SIMULATORS, count_launches=True,
+                    extra_at=[(aid, "admm") for aid in aids[1:]],
+                    instrument=instrument)
+    coord = run["mas"].agents["Coordinator"].get_module("coordinator")
+    agents = four_room_agents(run, aids)
+    outcome = four_room_outcome(run, coordinator=coord)
+    sizes = {aid: a["module"].backend.ocp.n_w + a["module"].backend.ocp.n_g
+             for aid, a in agents.items()}
+    failed = [{"agent": aid, "time": row["step"] * rc.ADMM_DT,
+               "admm_iteration": row["admm_iteration"],
+               "ip_iterations": row["iterations"],
+               "kkt_error": float(row["stats"]["kkt_error"])}
+              for aid, a in agents.items() for row in a["rows"]
+              if not row["success"]]
+    ref_failed = [{"agent": aid, "solve": k}
+                  for aid, rows in [(ROOMS[0], ref["solves"])] + [
+                      (aid, ref["extra"][f"{aid}/admm"]) for aid in aids[1:]]
+                  for k, r in enumerate(rows) if not r["success"]]
+    t_diff = [abs(a - b) for a, b in zip(
+        outcome["final_room_temperature_K"],
+        ref["outcome"]["final_room_temperature_K"])]
+    flow_diff = [abs(a - b) for a, b in zip(outcome["mean_flow"],
+                                            ref["outcome"]["mean_flow"])]
+    emit({"phase": "module_admm_coord", "dtype": COORD_DTYPE,
+          "until_s": FOUR_ROOM_UNTIL, "kkt_size": sizes,
+          "registered_before_first_round": seen.get("registered"),
+          "coupling_aliases": seen.get("aliases"),
+          "agents": four_room_summary(agents),
+          "failed_solves": failed, "f64_cpu_failed_solves": ref_failed,
+          "launches": run["totals"], "outcome": outcome,
+          "f64_cpu_outcome": ref["outcome"],
+          "final_T_abs_diff_K": t_diff, "mean_flow_abs_diff": flow_diff,
+          "tolerances": {"T_K": COORD_T_TOL_K, "flow": COORD_FLOW_TOL,
+                         "peak_total_flow": COORD_PEAK_FLOW},
+          "allocation_order_margin_not_gated":
+              outcome["mean_flow_4_minus_1"],
+          "build_seconds": run["build_s"], "run_seconds": run["wall_s"],
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    check(seen.get("registered") == sorted(aids)
+          and seen.get("aliases") == [f"mDotCoolAir_{i}"
+                                      for i in range(1, 5)],
+          f"module_admm_coord: before the first round the coordinator held "
+          f"{seen.get('registered')} on {seen.get('aliases')}")
+    check(sizes == {**{r: 74 for r in ROOMS}, "AHU": 32},
+          f"module_admm_coord: KKT sizes {sizes}")
+    check(not any(agents[r]["module"].backend.uses_qp_fast_path
+                  for r in ROOMS)
+          and agents["AHU"]["module"].backend.uses_qp_fast_path,
+          "module_admm_coord: the rooms must route to the NLP, the AHU to "
+          "the QP")
+    rounds = [r["iterations"] for r in outcome["rounds"]]
+    n_rounds = int(round(FOUR_ROOM_UNTIL / rc.ADMM_DT))
+    check(len(rounds) == n_rounds
+          and rounds == [r["iterations"] for r in ref["outcome"]["rounds"]],
+          f"module_admm_coord: ADMM iterations per round {rounds}, the f64 "
+          f"CPU reference's "
+          f"{[r['iterations'] for r in ref['outcome']['rounds']]}")
+    check(len(failed) <= COORD_MAX_FAILED
+          and not any(f["agent"] in ROOMS for f in failed),
+          f"module_admm_coord: failed solves {failed}")
+    for aid, a in agents.items():
+        check(len(a["rows"]) == sum(rounds)
+              and a["iterations_per_step"] == rounds,
+              f"module_admm_coord ({aid}): {len(a['rows'])} solves, "
+              f"{a['iterations_per_step']} per round")
+        levels = [r["guard_level"] for r in a["rows"] if "guard_level" in r]
+        check(len(levels) == n_rounds,
+              f"module_admm_coord ({aid}): the guard assessed "
+              f"{len(levels)} of {n_rounds} rounds")
+        check(aid == "AHU" or levels == [0] * n_rounds,
+              f"module_admm_coord ({aid}): guard levels {levels}")
+        check(a["module"].backend.warm_start_resets == 0,
+              f"module_admm_coord ({aid}): a warm start was reset")
+    check_four_room_launches("module_admm_coord", agents)
+    check_shapes("module_admm_coord", run["totals"], [(1, 74), (1, 32)],
+                 COORD_DTYPE)
+    check(outcome["finite"] and outcome["building_cools"]
+          and outcome["peak_total_flow"] <= COORD_PEAK_FLOW,
+          f"module_admm_coord: the building {outcome}")
+    check(max(t_diff) <= COORD_T_TOL_K and max(flow_diff) <= COORD_FLOW_TOL,
+          f"module_admm_coord: final temperatures {t_diff} K and mean flows "
+          f"{flow_diff} m³/s from the f64 CPU reference")
+    check(not ref_failed or all(f["agent"] == "AHU" for f in ref_failed),
+          f"module_admm_coord: the f64 CPU reference failed {ref_failed}")
+    return run["totals"]
+
+
+def phase_module_admm_exchange(torch, dev, smi, ref):
+    """examples/exchange_admm_4rooms.py's nine agents through LocalMAS on
+    the card in f32: four ExchangeRoom agents (augmented NLPs, KKT 74) and
+    the supplier (a QP, KKT 8) on one exchange alias, 12 ADMM iterations
+    per step, held against the same loop in f64 on the CPU with the plain
+    LDLᵀ."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    t_phase = time.perf_counter()
+    aids = (*ROOMS, "Supplier")
+    run = drive_mas(torch, rc.exchange_admm_4rooms_configs(), dev,
+                    getattr(torch, EXCHANGE_DTYPE), FOUR_ROOM_UNTIL,
+                    (ROOMS[0], "admm"), SIMULATORS, count_launches=True,
+                    extra_at=[(aid, "admm") for aid in aids[1:]])
+    agents = four_room_agents(run, aids)
+    supplier = agents["Supplier"]["module"]
+    outcome = four_room_outcome(run, supplier=supplier)
+    sizes = {aid: a["module"].backend.ocp.n_w + a["module"].backend.ocp.n_g
+             for aid, a in agents.items()}
+    wire = supplier._wire_alias(supplier.exchange[0])
+    peers = {aid: sorted(src.agent_id for src in
+                         a["module"]._registered_participants[wire])
+             for aid, a in agents.items()}
+    t_diff = [abs(a - b) for a, b in zip(
+        outcome["final_room_temperature_K"],
+        ref["outcome"]["final_room_temperature_K"])]
+    supply_diff = abs(outcome["supplier_flow"]
+                      - ref["outcome"]["supplier_flow"])
+    balance = abs(outcome["supplier_flow"] - outcome["total_room_flow_last"])
+    emit({"phase": "module_admm_exchange", "dtype": EXCHANGE_DTYPE,
+          "until_s": FOUR_ROOM_UNTIL, "kkt_size": sizes,
+          "registered_peers": peers, "agents": four_room_summary(agents),
+          "launches": run["totals"], "outcome": outcome,
+          "f64_cpu_outcome": ref["outcome"],
+          "final_T_abs_diff_K": t_diff, "supplier_flow_abs_diff":
+              supply_diff, "balance": balance,
+          "tolerances": {"T_K": EXCHANGE_T_TOL_K,
+                         "supplier_flow": EXCHANGE_SUPPLY_TOL,
+                         "balance": EXCHANGE_BALANCE_TOL},
+          "allocation_order_margin_not_gated":
+              outcome["mean_flow_4_minus_1"],
+          "build_seconds": run["build_s"], "run_seconds": run["wall_s"],
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    check(sizes == {**{r: 74 for r in ROOMS}, "Supplier": 8},
+          f"module_admm_exchange: KKT sizes {sizes}")
+    check(not any(agents[r]["module"].backend.uses_qp_fast_path
+                  for r in ROOMS) and supplier.backend.uses_qp_fast_path,
+          "module_admm_exchange: the rooms must route to the NLP, the "
+          "supplier to the QP")
+    n_steps = int(round(FOUR_ROOM_UNTIL / rc.ADMM_DT))
+    for aid, a in agents.items():
+        check(all(r["success"] for r in a["rows"]),
+              f"module_admm_exchange ({aid}): failed solves at "
+              f"{[k for k, r in enumerate(a['rows']) if not r['success']]}")
+        check(a["iterations_per_step"] == [EXCHANGE_ITERATIONS] * n_steps,
+              f"module_admm_exchange ({aid}): ADMM iterations per step "
+              f"{a['iterations_per_step']}")
+        levels = [r["guard_level"] for r in a["rows"] if "guard_level" in r]
+        check(levels == [0] * n_steps,
+              f"module_admm_exchange ({aid}): guard levels {levels}")
+        check(a["module"].backend.warm_start_resets == 0,
+              f"module_admm_exchange ({aid}): a warm start was reset")
+        check(peers[aid] == sorted(set(aids) - {aid}),
+              f"module_admm_exchange ({aid}): registered {peers[aid]} on "
+              f"{wire}")
+    check_four_room_launches("module_admm_exchange", agents)
+    check_shapes("module_admm_exchange", run["totals"], [(1, 74), (1, 8)],
+                 EXCHANGE_DTYPE)
+    check(outcome["finite"] and outcome["building_cools"]
+          and balance < EXCHANGE_BALANCE_TOL,
+          f"module_admm_exchange: the building {outcome}, balance "
+          f"{balance}")
+    check(max(t_diff) <= EXCHANGE_T_TOL_K
+          and supply_diff <= EXCHANGE_SUPPLY_TOL,
+          f"module_admm_exchange: final temperatures {t_diff} K and the "
+          f"supplier's flow {supply_diff} m³/s from the f64 CPU reference")
+    check(all(r["success"] for r in ref["solves"]) and all(
+        r["success"] for rows in ref["extra"].values() for r in rows),
+          "module_admm_exchange: the f64 CPU reference failed a solve")
+    profile_module_solve(torch, run, "module_admm_exchange_profile")
+    return run["totals"]
+
+
 def main() -> int:
     import torch
 
@@ -3016,7 +3431,8 @@ def main() -> int:
     os.sched_setaffinity(0, main_cores)
     torch.set_num_threads(len(main_cores))
     cores = {"card_process": main_cores, "cpu_subprocesses": ref_cores}
-    refs = References(["quality", *reference_specs()], ref_cores)
+    refs = References(["quality", "qp_quality", "fused_slice",
+                       "fused_linear"], list(reference_specs()), ref_cores)
     try:
         return run_phases(torch, dev, refs, seconds, t_start, cores)
     finally:
@@ -3046,15 +3462,15 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
     qp_outs, by_path["qp_slice"], qp_step, qp_args, qp_cold_ms = timed(
         "qp_slice", phase_qp_slice, torch, dev, smi)
     timed("qp_quality", phase_qp_quality, torch, dev, qp_outs, qp_step,
-          qp_args, qp_cold_ms)
+          qp_args, qp_cold_ms, refs.get("qp_quality"))
     by_path["qp_day_ahead"] = timed("qp_day_ahead", phase_qp_day_ahead,
                                     torch, dev, smi)
     by_path["sparse_day_ahead"] = timed(
         "sparse_day_ahead", phase_sparse_day_ahead, torch, dev, smi, lh)
     by_path["fused_slice"] = timed("fused_slice", phase_fused, torch, dev,
-                                   smi, "zone")
+                                   smi, "zone", refs.get("fused_slice"))
     by_path["fused_linear"] = timed("fused_linear", phase_fused, torch, dev,
-                                    smi, "linear")
+                                    smi, "linear", refs.get("fused_linear"))
     by_path["fused_fleet"] = timed("fused_fleet", phase_fused_fleet, torch,
                                    dev, smi)
     by_path["module_one_room"] = timed(
@@ -3077,6 +3493,12 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
                                    dev, smi, refs.get("module_admm"))
     by_path["module_admm_rt"] = timed("module_admm_rt",
                                       phase_module_admm_rt, torch, dev, smi)
+    by_path["module_admm_coord"] = timed(
+        "module_admm_coord", phase_module_admm_coord, torch, dev, smi,
+        refs.get("module_admm_coord"))
+    by_path["module_admm_exchange"] = timed(
+        "module_admm_exchange", phase_module_admm_exchange, torch, dev, smi,
+        refs.get("module_admm_exchange"))
     timed("module_minlp_cia_replay", phase_cia_replay, cia_run,
           refs.get("replay:module_minlp_cia"))
     new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,

@@ -20,9 +20,9 @@ module's protocol, and the ADMM registrations, on the CPU in float64.
   backends solving at once in two threads equal their solves alone;
 * (h) the reserved ``admm`` prefix, a module without couplings and a
   coupling that is neither a model input nor output are refused;
-* (i) ``jax_admm``/``casadi_admm``, ``admm_local``/``local_admm`` and
-  ``admm`` resolve to the port's classes; ``admm_coordinator``/
-  ``admm_coordinated`` still raise, naming ROADMAP item 2b-ii.
+* (i) ``jax_admm``/``casadi_admm``, ``admm_local``/``local_admm``,
+  ``admm``, ``admm_coordinator`` and ``admm_coordinated`` resolve to the
+  port's classes.
 """
 
 import copy
@@ -44,7 +44,11 @@ from agentlib_mpc_torch.backends.admm_backend import (
 from agentlib_mpc_torch.backends.backend import create_backend
 from agentlib_mpc_torch.modules import admm as padmm
 from agentlib_mpc_torch.runtime.mas import LocalMAS
-from agentlib_mpc_torch.runtime.module import MODULE_TYPES, create_module
+from agentlib_mpc_torch.runtime.module import (
+    DEFERRED_MODULE_TYPES,
+    MODULE_TYPES,
+    create_module,
+)
 from agentlib_mpc_torch.runtime.variables import AgentVariable, Source
 from agentlib_mpc_tpu.backends.admm_backend import (
     ADMMVariableReference as JADMMVariableReference,
@@ -448,18 +452,21 @@ def test_module_types_resolve_to_the_port(type_key, cls):
     assert MODULE_TYPES[type_key] is cls
 
 
+@pytest.mark.parametrize("type_key, name", [
+    ("admm_coordinator", "ADMMCoordinator"),
+    ("admm_coordinated", "CoordinatedADMM")])
+def test_coordinator_types_resolve_to_the_port(type_key, name):
+    from agentlib_mpc_torch.modules import coordinator
+
+    assert MODULE_TYPES[type_key] is getattr(coordinator, name)
+    assert type_key not in DEFERRED_MODULE_TYPES
+
+
 @pytest.mark.parametrize("type_key", ["jax_admm", "casadi_admm"])
 def test_backend_types_resolve_to_the_port(type_key):
     backend = create_backend({"type": type_key, "model": {"class": "Cooler"}},
                              device="cpu", dtype=F64)
     assert type(backend) is ADMMBackend
-
-
-@pytest.mark.parametrize("type_key", ["admm_coordinator",
-                                      "admm_coordinated"])
-def test_coordinator_types_still_raise(type_key):
-    with pytest.raises(NotImplementedError, match="2b-ii"):
-        create_module({"type": type_key, "module_id": "c"}, _agent())
 
 
 @pytest.mark.parametrize("type_key", ["jax_admm_ml", "casadi_admm_ml"])
