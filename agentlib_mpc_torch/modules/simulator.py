@@ -11,10 +11,11 @@ from the broker, publishes outputs, and records a results table.
 The integrator is a fixed-step scheme (rk4 default, implicit_midpoint for
 stiff plants) — the CVODES replacement — run by
 :meth:`~agentlib_mpc_torch.models.model.Model.simulate_step` on the agent's
-device in its dtype, where the JAX package jit-compiles the same step
-(and runs it once at construction to compile it; the port has nothing to
-compile). The plant state comes back to the host once per sample, as in
-the JAX package.
+device in its dtype, where the JAX package jit-compiles the same step.
+Both run it once at construction, so a real-time schedule does not slip at
+the first sample (the JAX package compiles there; the port pays torch's
+lazy set-up). The plant state comes back to the host once per sample, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,6 +66,12 @@ class Simulator(BaseModule):
                 dt=t_sample, substeps=substeps, method=method)
 
         self._sim_step = sim_step
+        # one throwaway step now, as the JAX package compiles its step
+        # here: the first eager step pays torch's lazy set-up (about a
+        # second on a CPU), and in real-time mode that pause would let the
+        # schedule slip behind wall time
+        sim_step(self._x, model.default_vector("inputs", device="cpu"),
+                 model.default_vector("parameters", device="cpu"))
 
     def process(self):
         while True:

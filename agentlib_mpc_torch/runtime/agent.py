@@ -34,9 +34,12 @@ class Agent:
         self.data_broker = DataBroker(self.id)
         self.modules: dict[str, BaseModule] = {}
         for mod_cfg in config.get("modules", []):
-            # communicator entries of the reference configs ("local",
-            # "local_broadcast", ...) are subsumed by the LocalMAS bus; accept
-            # and skip them for config compatibility
+            # communicator entries of the reference configs are accepted and
+            # skipped for config compatibility: the buses carry the traffic
+            # ("local"/"local_broadcast": the LocalMAS bus;
+            # "multiprocessing_broadcast": the relay of
+            # runtime/multiprocessing_mas.py; "mqtt": runtime/mqtt.MqttBus,
+            # attached by runtime/container.py)
             if mod_cfg.get("type") in ("local", "local_broadcast",
                                        "multiprocessing_broadcast", "mqtt"):
                 continue

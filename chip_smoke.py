@@ -105,7 +105,7 @@ non-zero without printing a result:
               (``agentlib_mpc_torch/reference_configs.py``; the ``mpc``
               module on the ``jax`` backend, N=15, degree-2 Legendre
               collocation, KKT 137; the ``simulator`` every 10 s) for
-              3 600 s in f32 on the card: launch counters reset just before
+              2 400 s in f32 on the card: launch counters reset just before
               and read just after (only at (1, 137), one factor and three
               solves per interior-point iteration), every solve successful
               with the actuation guard at level 0 and no warm-start reset;
@@ -187,7 +187,8 @@ non-zero without printing a result:
               finite with shape (4,), no worker alive afterwards, and the
               launches exact per iteration over both threads.
 22. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
-              agents for 600 s (two rounds) in f64 (in f32 the JAX
+              agents for 300 s (one round; two until the fleet phases
+              came) in f64 (in f32 the JAX
               package's loop fails two room solves on the pivot-free LDLᵀ:
               ``scripts/admm_f32_witness.py``): an ``admm_coordinator``
               drives four ``CooledRoom`` participants (NLP at (1, 74), one
@@ -205,7 +206,7 @@ non-zero without printing a result:
               allocation order (room 4's mean flow above room 1's) printed
               with its margin; per round the residual trails and rho.
 23. module_admm_exchange — ``examples/exchange_admm_4rooms.py``'s nine
-              agents for 600 s (two steps) in f32: four ``ExchangeRoom``
+              agents for 300 s (one step) in f32: four ``ExchangeRoom``
               agents (NLP at (1, 74), 1:3) and the supplier (QP at (1, 8),
               1:6) as ``admm_local`` modules on one exchange alias; every
               solve successful at guard level 0 with no warm-start reset,
@@ -215,7 +216,31 @@ non-zero without printing a result:
               room's final temperature within 0.01 K and the supplier's
               flow within 1e-4 m³/s of the same loop in f64 on the CPU; a
               profiled room solve.
-24. path_shapes — every (B, M) a path launched, in each type it launched
+24. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
+              they are: coordinated ADMM, the CooledRoom with its plant,
+              the Cooler) as three container processes on the card in
+              f64, joined over a ``MiniBroker`` of the port in this
+              process, on the wall clock: the coordinator as ``python -m
+              agentlib_mpc_torch.runtime.container``, the room and the
+              cooler through ``--fleet-container`` (the same ``main()``,
+              then one JSON line with their launch counts, solves, CUDA
+              context seconds and peak memory), device and dtype from
+              ``AGENT_DEVICE``/``AGENT_DTYPE``. The participants stop
+              after 20 s of their clocks, then the coordinator gets
+              SIGTERM. Every process exits 0, messages crossed the
+              broker, both participants registered, at least two rounds
+              completed, every solve successful with exact launches only
+              at the real-time pair's shapes in float64, the
+              coordinator's CSV has its residual columns and the room's
+              ADMM CSV loads through ``utils.analysis``.
+25. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
+              (one ``spawn``ed process each on its TCP relay, device
+              ``cuda``, f64, real time at factor 1.0); each child's
+              launch counts and solves are written at its exit by the
+              ``bootstrap`` hook (:func:`fleet_child_bootstrap`): results
+              from all four agents, at least two rounds, every solve
+              successful, launches exact.
+26. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
@@ -224,8 +249,8 @@ The f64 CPU references of the slice, qp_slice, fused_slice and
 fused_linear paths and of the module phases run in subprocesses of this
 script (``--cpu-reference NAME``) started at the beginning, beside the
 card's phases (the module phases' at a lower scheduling priority), and are
-ended with the script; they and the CIA replay
-(``--cpu-replay NAME``) run on the last five of the cores this process
+ended with the script; they and the replays of the linear-QP and CIA
+card solves (``--cpu-replay NAME``) run on the last five of the cores this process
 may use, the card's process on the others (where there are eight or
 more; the ``summary`` line names them). Then the run's wall time, the
 ``nvidia-smi`` line, the ``kernels`` JSON line and, last,
@@ -392,10 +417,10 @@ FLEET_RESUME_TOL = 0.0
 #: (agentlib_mpc_torch/reference_configs.py): the two-agent one-room MAS
 #: at its full size (N=15, degree-2 Legendre collocation, the plant every
 #: 10 s) and the linear-QP agent (N=8, LinearRCZone on the QP fast path,
-#: the plant every 300 s), 3 600 s (one-room: 13 solves and 360 plant
-#: steps; cut from 7 200 s for the script's time limit) and 7 200 s of
-#: closed loop
-ONE_ROOM_UNTIL = 3600.0
+#: the plant every 300 s), 2 400 s (one-room: 9 solves and 240 plant
+#: steps; cut from 7 200 s, and from 3 600 s when the fleet phases came,
+#: for the script's time limit) and 7 200 s of closed loop
+ONE_ROOM_UNTIL = 2400.0
 MODULE_UNTIL = 7200.0
 #: card f32 against the CPU's f64 with the plain LDLᵀ, relative, on the
 #: one-room loop's comfort error (AIE) and cooling energy: the JAX
@@ -492,22 +517,25 @@ ADMM_T_F64_TOL_K = 0.02
 #: float32 cannot meet the test's gates
 ADMM_RT_UNTIL = 10.0
 ADMM_RT_DTYPE = "float64"
-#: the two four-room examples at their full width, to 600 s (two control
-#: steps: one cold, one warm). examples/admm_4rooms_coordinator.py's
+#: the two four-room examples at their full width, to 300 s (one control
+#: step each; two until module_fleet_mqtt and module_fleet_mp came, for
+#: the script's time limit). examples/admm_4rooms_coordinator.py's
 #: coordinator, four CooledRoom participants, the AHU and four simulators
 #: in float64: on the pivot-free LDLᵀ the JAX package's float32 loop fails
 #: two room solves (KKT errors near 300), its float64 loop only the AHU at
-#: t = 300 s, on LU and LDLᵀ alike (scripts/admm_f32_witness.py, ``coord4``
-#: and ``failed`` lines). examples/exchange_admm_4rooms.py's four
-#: ExchangeRoom agents and the supplier (admm_local, 12 iterations) and four
-#: simulators in float32, the module path's default: clean in both types and
-#: both packages there
-FOUR_ROOM_UNTIL = 600.0
+#: t = 300 s, on LU and LDLᵀ alike, in the second round, which this depth
+#: no longer reaches (scripts/admm_f32_witness.py, ``coord4`` and
+#: ``failed`` lines). examples/exchange_admm_4rooms.py's four ExchangeRoom
+#: agents and the supplier (admm_local, 12 iterations) and four simulators
+#: in float32, the module path's default: clean in both types and both
+#: packages there
+COORD_UNTIL = EXCHANGE_UNTIL = 300.0
 COORD_DTYPE, EXCHANGE_DTYPE = "float64", "float32"
 ROOMS = tuple(f"Room_{i}" for i in range(1, 5))
 SIMULATORS = tuple((f"Simulation_{i}", "simulator") for i in range(1, 5))
-#: the coordinator loop may fail one solve of its 150, and no room's (the
-#: JAX package's own float64 loop fails the AHU's at t = 300 s)
+#: the coordinator loop may fail one solve (of 75 in one round, 150 in
+#: two), and no room's (the JAX package's own float64 loop fails the AHU's
+#: at t = 300 s, in the second round)
 COORD_MAX_FAILED = 1
 #: each room's final temperature (K) and mean actuated flow (m³/s) against
 #: the same loop in f64 on the CPU (plain LDLᵀ). Set before any card run at
@@ -526,6 +554,23 @@ COORD_PEAK_FLOW = 0.075 * 1.10 + 1e-9
 EXCHANGE_ITERATIONS = 12
 EXCHANGE_BALANCE_TOL = 0.02
 EXCHANGE_T_TOL_K, EXCHANGE_SUPPLY_TOL = 0.01, 1e-4
+
+#: the deploy fleet (deploy/fleet/*.json, read as they are: the
+#: coordinator, the CooledRoom participant with its plant as one local
+#: group, the Cooler; coordinated ADMM, N=4, admm_iter_max 5, a round every
+#: 5 s of wall clock) across process boundaries on the card, in float64 (the
+#: room is the real-time pair's CooledRoom, whose f32 solves fail on the
+#: pivot-free LDLᵀ in both packages). module_fleet_mqtt: three container
+#: processes over a MiniBroker; module_fleet_mp: the four agents through
+#: MultiProcessingMAS on its TCP relay. Each participant's clock runs
+#: FLEET_UNTIL seconds; at least FLEET_MIN_ROUNDS rounds must complete
+HERE = os.path.dirname(os.path.abspath(__file__))
+FLEET_DIR = os.path.join(HERE, "deploy", "fleet")
+FLEET_OUT = os.path.join(HERE, "fleet_out")
+FLEET_DTYPE = "float64"
+FLEET_UNTIL = 20.0
+FLEET_MIN_ROUNDS = 2
+FLEET_AGENTS = ("Coordinator", "CooledRoom", "Simulation", "Cooler")
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -2320,12 +2365,12 @@ def reference_specs():
             lambda: rc.admm_4rooms_coordinator_configs(solver=plain),
             (ROOMS[0], "admm"), SIMULATORS,
             tuple((aid, "admm") for aid in (*ROOMS[1:], "AHU")),
-            FOUR_ROOM_UNTIL),
+            COORD_UNTIL),
         "module_admm_exchange": (
             lambda: rc.exchange_admm_4rooms_configs(solver=plain),
             (ROOMS[0], "admm"), SIMULATORS,
             tuple((aid, "admm") for aid in (*ROOMS[1:], "Supplier")),
-            FOUR_ROOM_UNTIL),
+            EXCHANGE_UNTIL),
     }
 
 
@@ -2400,7 +2445,9 @@ def replay_specs():
 
     return {"module_minlp_cia": (lambda: rc.minlp_switched_room_configs(
         backend_type="jax_cia", solver={"kkt_method": "ldl"}),
-        ("Controller", "mpc"))}
+        ("Controller", "mpc")),
+        "module_linear_qp": (lambda: [rc.linear_qp_config(
+            {"kkt_method": "ldl"})], ("LinearZone", "mpc"))}
 
 
 def split_cores():
@@ -2533,16 +2580,10 @@ def phase_module_linear_qp(torch, dev, smi, ref):
     check(backend.uses_qp_fast_path is True,
           "module_linear_qp: LinearRCZone did not route to the QP fast path")
     M = backend.ocp.n_w + backend.ocp.n_g
-    replay = replay_solves(torch, [linear_qp_config({"kkt_method": "ldl"})],
-                           ("LinearZone", "mpc"), run)
     u0 = np.array([row["u0"]["Q"] for row in run["solves"]])
     u0_64 = np.array([row["u0"]["Q"] for row in ref["solves"]])
-    u0_replay = np.array([row["u0"]["Q"] for row in replay])
     check(len(u0) == len(u0_64), "module_linear_qp: solve counts differ")
-    gap, replay_gap = np.abs(u0 - u0_64), np.abs(u0 - u0_replay)
-    replay_iterations_differ = [
-        k for k, (a, b) in enumerate(zip(run["solves"], replay))
-        if a["iterations"] != b["iterations"]]
+    gap = np.abs(u0 - u0_64)
     t_final = run["rows"][-1]["T_out"]
     emit({"phase": "module_linear_qp", "dtype": "float64", "kkt_size": M,
           "horizon": backend.N, "until_s": MODULE_UNTIL,
@@ -2551,9 +2592,6 @@ def phase_module_linear_qp(torch, dev, smi, ref):
           "final_plant_temperature_K": t_final,
           "t_final_limit_K": LINEAR_QP_T_LIMIT,
           "u0_W": u0.tolist(),
-          "u0_replay_max_abs_diff_W": float(replay_gap.max()),
-          "u0_replay_tol_W": LINEAR_QP_U0_TOL_W,
-          "replay_iterations_differ": replay_iterations_differ,
           "u0_closed_loop_f64_cpu_W": u0_64.tolist(),
           "u0_closed_loop_max_abs_diff_W": float(gap.max()),
           "iterations_per_solve_f64_cpu": [r["iterations"]
@@ -2572,13 +2610,31 @@ def phase_module_linear_qp(torch, dev, smi, ref):
           "module_linear_qp: the f64 CPU reference failed a solve")
     check(t_final <= LINEAR_QP_T_LIMIT,
           f"module_linear_qp: plant at {t_final} K")
-    check(not replay_iterations_differ
-          and float(replay_gap.max()) <= LINEAR_QP_U0_TOL_W,
-          f"module_linear_qp: the CPU's replay of the card's solves differs "
-          f"by {replay_gap.max()} W in u0, iterations at "
-          f"{replay_iterations_differ}")
+    loop_solves = list(run["solves"])   # the profiled solve adds a row
     profile_module_solve(torch, run, "module_linear_qp_profile")
-    return run["totals"]
+    return run["totals"], loop_solves
+
+
+def phase_linear_qp_replay(card, rep):
+    """Every card solve ``card`` of ``module_linear_qp``'s loop (f64) once
+    more on the CPU in f64 with the plain LDLᵀ, from the same inputs and
+    warm state (a subprocess, :meth:`References.replay`): the same
+    iterations, u0 within ``LINEAR_QP_U0_TOL_W``."""
+    cpu = rep["rows"]
+    check(len(card) == len(cpu), "module_linear_qp_replay: solve counts "
+          f"differ ({len(card)} on the card, {len(cpu)} replayed)")
+    gap = np.abs(np.array([a["u0"]["Q"] for a in card])
+                 - np.array([b["u0"]["Q"] for b in cpu]))
+    iterations_differ = [k for k, (a, b) in enumerate(zip(card, cpu))
+                         if a["iterations"] != b["iterations"]]
+    emit({"phase": "module_linear_qp_replay", "solves": len(card),
+          "u0_replay_max_abs_diff_W": float(gap.max()),
+          "u0_replay_tol_W": LINEAR_QP_U0_TOL_W,
+          "replay_iterations_differ": iterations_differ})
+    check(not iterations_differ and float(gap.max()) <= LINEAR_QP_U0_TOL_W,
+          f"module_linear_qp_replay: the CPU's replay of the card's solves "
+          f"differs by {gap.max()} W in u0, iterations at "
+          f"{iterations_differ}")
 
 
 def check_solve_launches(name, rows, factor_per_it, solve_per_it):
@@ -3225,7 +3281,7 @@ def phase_module_admm_coord(torch, dev, smi, ref):
         coord.trigger_optimizations = first_trigger
 
     run = drive_mas(torch, rc.admm_4rooms_coordinator_configs(), dev,
-                    getattr(torch, COORD_DTYPE), FOUR_ROOM_UNTIL,
+                    getattr(torch, COORD_DTYPE), COORD_UNTIL,
                     (ROOMS[0], "admm"), SIMULATORS, count_launches=True,
                     extra_at=[(aid, "admm") for aid in aids[1:]],
                     instrument=instrument)
@@ -3250,7 +3306,7 @@ def phase_module_admm_coord(torch, dev, smi, ref):
     flow_diff = [abs(a - b) for a, b in zip(outcome["mean_flow"],
                                             ref["outcome"]["mean_flow"])]
     emit({"phase": "module_admm_coord", "dtype": COORD_DTYPE,
-          "until_s": FOUR_ROOM_UNTIL, "kkt_size": sizes,
+          "until_s": COORD_UNTIL, "kkt_size": sizes,
           "registered_before_first_round": seen.get("registered"),
           "coupling_aliases": seen.get("aliases"),
           "agents": four_room_summary(agents),
@@ -3279,7 +3335,7 @@ def phase_module_admm_coord(torch, dev, smi, ref):
           "module_admm_coord: the rooms must route to the NLP, the AHU to "
           "the QP")
     rounds = [r["iterations"] for r in outcome["rounds"]]
-    n_rounds = int(round(FOUR_ROOM_UNTIL / rc.ADMM_DT))
+    n_rounds = int(round(COORD_UNTIL / rc.ADMM_DT))
     check(len(rounds) == n_rounds
           and rounds == [r["iterations"] for r in ref["outcome"]["rounds"]],
           f"module_admm_coord: ADMM iterations per round {rounds}, the f64 "
@@ -3326,7 +3382,7 @@ def phase_module_admm_exchange(torch, dev, smi, ref):
     t_phase = time.perf_counter()
     aids = (*ROOMS, "Supplier")
     run = drive_mas(torch, rc.exchange_admm_4rooms_configs(), dev,
-                    getattr(torch, EXCHANGE_DTYPE), FOUR_ROOM_UNTIL,
+                    getattr(torch, EXCHANGE_DTYPE), EXCHANGE_UNTIL,
                     (ROOMS[0], "admm"), SIMULATORS, count_launches=True,
                     extra_at=[(aid, "admm") for aid in aids[1:]])
     agents = four_room_agents(run, aids)
@@ -3345,7 +3401,7 @@ def phase_module_admm_exchange(torch, dev, smi, ref):
                       - ref["outcome"]["supplier_flow"])
     balance = abs(outcome["supplier_flow"] - outcome["total_room_flow_last"])
     emit({"phase": "module_admm_exchange", "dtype": EXCHANGE_DTYPE,
-          "until_s": FOUR_ROOM_UNTIL, "kkt_size": sizes,
+          "until_s": EXCHANGE_UNTIL, "kkt_size": sizes,
           "registered_peers": peers, "agents": four_room_summary(agents),
           "launches": run["totals"], "outcome": outcome,
           "f64_cpu_outcome": ref["outcome"],
@@ -3366,7 +3422,7 @@ def phase_module_admm_exchange(torch, dev, smi, ref):
                   for r in ROOMS) and supplier.backend.uses_qp_fast_path,
           "module_admm_exchange: the rooms must route to the NLP, the "
           "supplier to the QP")
-    n_steps = int(round(FOUR_ROOM_UNTIL / rc.ADMM_DT))
+    n_steps = int(round(EXCHANGE_UNTIL / rc.ADMM_DT))
     for aid, a in agents.items():
         check(all(r["success"] for r in a["rows"]),
               f"module_admm_exchange ({aid}): failed solves at "
@@ -3400,6 +3456,386 @@ def phase_module_admm_exchange(torch, dev, smi, ref):
     return run["totals"]
 
 
+def fleet_configs() -> list:
+    """The deploy fleet's four agent configs, read as they are."""
+    from agentlib_mpc_torch.runtime.container import load_configs
+
+    return [cfg for name in ("coordinator", "room", "cooler")
+            for cfg in load_configs(os.path.join(FLEET_DIR, f"{name}.json"))]
+
+
+def cuda_context_seconds(torch, dev) -> float | None:
+    """Seconds to the first tensor on ``dev`` in this process (the CUDA
+    context, on a card; None on the CPU)."""
+    if torch.device(dev).type != "cuda":
+        return None
+    t0 = time.perf_counter()
+    torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fleet_process_report(torch, dev, agents, context_s, build_s,
+                         kkt) -> dict:
+    """One fleet process as plain data: its agents, CUDA context and build
+    seconds, per solving backend the KKT size, routing and every solve
+    (ms, iterations, success), cold (first) and median warm solve ms, the
+    peak device memory and the launch counts since the build."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    backends = {f"{a.id}/{mid}": m.backend for a in agents
+                for mid, m in a.modules.items()
+                if getattr(m, "backend", None) is not None}
+    solves = {key: [{"ms": r["solve_wall_time"] * 1e3,
+                     "iterations": int(r["iterations"]),
+                     "success": bool(r["success"])}
+                    for r in b.stats_history]
+              for key, b in backends.items()}
+    return {
+        "pid": os.getpid(), "agents": [a.id for a in agents],
+        "cuda_context_seconds": context_s, "build_seconds": build_s,
+        "kkt_size": {k: b.ocp.n_w + b.ocp.n_g for k, b in backends.items()},
+        "dtype": {k: str(b.dtype) for k, b in backends.items()},
+        "solves_per_factor": {k: 6 if b.uses_qp_fast_path else per_factor(b)
+                              for k, b in backends.items()},
+        "solves": solves,
+        "cold_solve_ms": {k: s[0]["ms"] if s else None
+                          for k, s in solves.items()},
+        "warm_solve_ms_median": {
+            k: float(np.median([r["ms"] for r in s[1:]])) if len(s) > 1
+            else None for k, s in solves.items()},
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                              if torch.device(dev).type == "cuda" else None),
+        "launches": launch_totals(kkt)}
+
+
+def fleet_container_child() -> int:
+    """``--fleet-container``: the port's container ``main()`` (configured by
+    its environment variables, as ``python -m
+    agentlib_mpc_torch.runtime.container`` is), then this process's
+    :func:`fleet_process_report` as one JSON line. The launch counts are
+    reset once the MAS is built (after its backends' precompile solves);
+    the results frames ``main()`` cannot write as CSV (a module's dict of
+    frames) are written by ``utils.analysis.save_results``."""
+    import torch
+
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.runtime import container
+    from agentlib_mpc_torch.utils import analysis
+
+    dev = os.environ["AGENT_DEVICE"]
+    context_s = cuda_context_seconds(torch, dev)
+    built = {}
+    build = container.build_mas
+
+    def counted_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        mas, buses = build(*args, **kwargs)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        built.update(mas=mas, seconds=time.perf_counter() - t0)
+        kkt.reset_launch_counts()
+        return mas, buses
+
+    container.build_mas = counted_build
+    rc = container.main([])
+    mas = built["mas"]
+    analysis.save_results(mas.get_results(), os.environ["RESULTS_DIR"])
+    report = fleet_process_report(torch, dev, list(mas.agents.values()),
+                                  context_s, built["seconds"], kkt)
+    print(json.dumps({"rc": rc, **report}, default=float), flush=True)
+    return rc
+
+
+def fleet_child_bootstrap(dev: str, out_dir: str, cores) -> None:
+    """``MultiProcessingMAS`` bootstrap of module_fleet_mp's children: the
+    cores, the CUDA context (timed), and, once the child's agent is built
+    (after its precompile solves), the launch counts reset; at the child's
+    exit its :func:`fleet_process_report` goes to ``out_dir/<agent>.json``
+    (the MAS returns the modules' results, not the process's counts)."""
+    import atexit
+
+    import torch
+
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.runtime import agent as agent_module
+
+    os.sched_setaffinity(0, cores)
+    context_s = cuda_context_seconds(torch, dev)
+    built = []
+    init = agent_module.Agent.__init__
+
+    def counted_init(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        init(self, *args, **kwargs)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        built.append((self, time.perf_counter() - t0))
+        kkt.reset_launch_counts()
+
+    def report():
+        agent, build_s = built[0]
+        rep = fleet_process_report(torch, dev, [agent], context_s, build_s,
+                                   kkt)
+        with open(os.path.join(out_dir, f"{agent.id}.json"), "w") as fh:
+            json.dump(rep, fh, default=float)
+
+    agent_module.Agent.__init__ = counted_init
+    atexit.register(report)
+
+
+def fleet_totals(reports) -> dict:
+    """The launch totals of the fleet's processes, summed."""
+    out = {"ldl_factor": 0, "ldl_solve": 0,
+           "shapes": {"ldl_factor": [], "ldl_solve": []},
+           "shapes_f64": {"ldl_factor": [], "ldl_solve": []}}
+    for rep in reports:
+        t = rep["launches"]
+        for kernel in ("ldl_factor", "ldl_solve"):
+            out[kernel] += t[kernel]
+            for key in ("shapes", "shapes_f64"):
+                out[key][kernel] = sorted(
+                    set(out[key][kernel]) | {tuple(x) for x in
+                                             t[key][kernel]})
+    return out
+
+
+def check_fleet_solves(name, reports):
+    """Every solve of every solving process successful, at least one each;
+    the launches exact per process (one factor per inner iteration and the
+    solves of its path); every backend in FLEET_DTYPE."""
+    for rep in reports:
+        iterations = {k: sum(r["iterations"] for r in s)
+                      for k, s in rep["solves"].items()}
+        for key, rows in rep["solves"].items():
+            check(rows and all(r["success"] for r in rows),
+                  f"{name} ({key}): {len(rows)} solves, failed at "
+                  f"{[k for k, r in enumerate(rows) if not r['success']]}")
+            check(rep["dtype"][key] == f"torch.{FLEET_DTYPE}",
+                  f"{name} ({key}): solved in {rep['dtype'][key]}")
+        t = rep["launches"]
+        want_f = sum(iterations.values())
+        want_s = sum(rep["solves_per_factor"][k] * n
+                     for k, n in iterations.items())
+        check(t["ldl_factor"] == want_f and t["ldl_solve"] == want_s,
+              f"{name} ({rep['agents']}): {t['ldl_factor']} factor / "
+              f"{t['ldl_solve']} solve launches, expected {want_f} / "
+              f"{want_s} for {iterations} iterations")
+
+
+def fleet_process_line(name, rep) -> dict:
+    return {"phase": f"{name}_process",
+            **{k: rep[k] for k in ("agents", "pid", "cuda_context_seconds",
+                                   "build_seconds", "kkt_size",
+                                   "cold_solve_ms", "warm_solve_ms_median",
+                                   "peak_memory_bytes")},
+            "solves": {k: len(s) for k, s in rep["solves"].items()},
+            "iterations": {k: [r["iterations"] for r in s]
+                           for k, s in rep["solves"].items()},
+            "launches": {k: rep["launches"][k]
+                         for k in ("ldl_factor", "ldl_solve")}}
+
+
+def fresh_dir(path: str) -> str:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def phase_module_fleet_mqtt(torch, dev, smi, cores):
+    """The deploy fleet as three container processes on the card over a
+    port ``MiniBroker`` in this process, as deploy/run_fleet_local.sh runs
+    it: the coordinator literally as ``python -m
+    agentlib_mpc_torch.runtime.container`` (it launches no kernel), the
+    room group and the cooler through ``--fleet-container`` (the same
+    ``main()``, then their launch counts); device and dtype from
+    ``AGENT_DEVICE``/``AGENT_DTYPE``, ``REALTIME=1``; the participants stop
+    after FLEET_UNTIL s of their clocks, then the coordinator gets
+    SIGTERM."""
+    import signal
+
+    from agentlib_mpc_torch.runtime.mqtt_native import MiniBroker
+    from agentlib_mpc_torch.utils import analysis
+
+    t_phase = time.perf_counter()
+    out_dir = fresh_dir(os.path.join(FLEET_OUT, "fleet_mqtt"))
+    broker = MiniBroker()
+    base = {**os.environ, "PYTHONPATH": HERE, "AGENT_DEVICE": str(dev),
+            "AGENT_DTYPE": FLEET_DTYPE, "MQTT_HOST": "127.0.0.1",
+            "MQTT_PORT": str(broker.port), "REALTIME": "1",
+            "RESULTS_DIR": out_dir, "LOG_LEVEL": "INFO"}
+    base.pop("RUN_UNTIL", None)
+
+    def start(config, argv, until=None):
+        env = {**base, "AGENT_CONFIG": os.path.join(FLEET_DIR, config)}
+        if until is not None:
+            env["RUN_UNTIL"] = str(until)
+        return subprocess.Popen(
+            [sys.executable, *argv], env=env, cwd=HERE, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            preexec_fn=lambda: os.sched_setaffinity(0, cores))
+
+    procs, out = {}, {}
+    try:
+        procs["Coordinator"] = start(
+            "coordinator.json",
+            ["-m", "agentlib_mpc_torch.runtime.container"])
+        for name, config in (("CooledRoom", "room.json"),
+                             ("Cooler", "cooler.json")):
+            procs[name] = start(config, [__file__, "--fleet-container"],
+                                FLEET_UNTIL)
+        for name in ("CooledRoom", "Cooler"):
+            out[name] = procs[name].communicate(timeout=300)
+        run_s = time.perf_counter() - t_phase
+        procs["Coordinator"].send_signal(signal.SIGTERM)
+        out["Coordinator"] = procs["Coordinator"].communicate(timeout=60)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        broker.stop()
+    rcs = {name: p.returncode for name, p in procs.items()}
+    with open(os.path.join(out_dir, "logs.txt"), "w") as fh:
+        for name, (o, e) in out.items():
+            fh.write(f"===== {name} (rc {rcs[name]})\n{o}\n{e}\n")
+    for name, rc in rcs.items():
+        check(rc == 0, f"module_fleet_mqtt: {name} exited {rc}:\n"
+              f"{out[name][1][-3000:]}")
+    reports = {}
+    for name in ("CooledRoom", "Cooler"):
+        lines = [ln for ln in out[name][0].splitlines()
+                 if ln.startswith("{")]
+        check(bool(lines), f"module_fleet_mqtt: {name} printed no report")
+        reports[name] = json.loads(lines[-1])
+        emit(fleet_process_line("module_fleet_mqtt", reports[name]))
+    coord_log = out["Coordinator"][1]
+    emit({"phase": "module_fleet_mqtt_process", "agents": ["Coordinator"],
+          "pid": procs["Coordinator"].pid,
+          "entry": "python -m agentlib_mpc_torch.runtime.container",
+          "cuda_context_seconds": "not measured (the entry point as is)",
+          "peak_memory_bytes": "not measured (the entry point as is)",
+          "solves": {}})
+    registered = sorted(a for a in ("CooledRoom", "Cooler")
+                        if f"registered agent Source(agent_id='{a}'"
+                        in coord_log)
+    round_ends = sum(1 for ln in coord_log.splitlines()
+                     if "converged in" in ln or "no convergence within" in ln)
+    stats = analysis.load_mpc_stats(
+        os.path.join(out_dir, "Coordinator__coordinator.csv"))
+    rounds = [{"time": float(t), "iterations": len(g),
+               "primal_residual": g["primal_residual"].tolist(),
+               "dual_residual": g["dual_residual"].tolist(),
+               "penalty_parameter": g["penalty_parameter"].tolist()}
+              for t, g in stats.groupby(level="time")]
+    room_admm = analysis.load_admm(
+        os.path.join(out_dir, "CooledRoom_admm_admm.csv"))
+    sim = analysis.load_sim(
+        os.path.join(out_dir, "Simulation__simulator.csv"))
+    totals = fleet_totals(reports.values())
+    emit({"phase": "module_fleet_mqtt", "dtype": FLEET_DTYPE,
+          "until_s": FLEET_UNTIL, "returncodes": rcs,
+          "messages_routed": broker.messages_routed,
+          "client_impl": "native" if "using the first-party MQTT"
+          in out["CooledRoom"][1] else "paho",
+          "registered": registered, "rounds_ended_in_log": round_ends,
+          "rounds": rounds,
+          "room_admm_csv": {"rows": len(room_admm),
+                            "index": list(room_admm.index.names),
+                            "columns": [list(c) for c in room_admm.columns]},
+          "plant_T_out": sim["T_out"].tolist(),
+          "launches": totals, "run_seconds": run_s,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    check(broker.messages_routed > 0,
+          "module_fleet_mqtt: no MQTT message crossed the broker")
+    check(registered == ["CooledRoom", "Cooler"],
+          f"module_fleet_mqtt: the coordinator registered {registered}")
+    check(len(rounds) >= FLEET_MIN_ROUNDS and round_ends >= FLEET_MIN_ROUNDS
+          and all(np.isfinite(r["primal_residual"]).all() for r in rounds),
+          f"module_fleet_mqtt: {len(rounds)} rounds in the coordinator's "
+          f"CSV, {round_ends} ended in its log")
+    check({"primal_residual", "dual_residual", "penalty_parameter"}
+          <= set(stats.columns),
+          f"module_fleet_mqtt: coordinator CSV columns {list(stats.columns)}")
+    check(room_admm.index.nlevels == 3 and len(room_admm) > 0
+          and ("variable", "mDot") in room_admm.columns,
+          "module_fleet_mqtt: the room's ADMM CSV")
+    check_fleet_solves("module_fleet_mqtt", reports.values())
+    sizes = [(1, s) for rep in reports.values()
+             for s in rep["kkt_size"].values()]
+    check_shapes("module_fleet_mqtt", totals, sizes, FLEET_DTYPE)
+    for kernel in ("ldl_factor", "ldl_solve"):
+        check(all(rep["launches"][kernel] > 0 for rep in reports.values()),
+              f"module_fleet_mqtt: {kernel} not launched in every solving "
+              f"process")
+    return totals
+
+
+def phase_module_fleet_mp(torch, dev, smi, cores):
+    """The deploy fleet's four agents through ``MultiProcessingMAS`` (one
+    spawned process each, the TCP relay, ``rt`` with factor 1.0) on the
+    card in float64; each child's report is written at its exit by
+    :func:`fleet_child_bootstrap`."""
+    import functools
+
+    from agentlib_mpc_torch.runtime.multiprocessing_mas import (
+        MultiProcessingMAS,
+    )
+
+    t_phase = time.perf_counter()
+    out_dir = fresh_dir(os.path.join(FLEET_OUT, "fleet_mp"))
+    mas = MultiProcessingMAS(
+        fleet_configs(), env={"rt": True, "factor": 1.0},
+        bootstrap=functools.partial(fleet_child_bootstrap, str(dev), out_dir,
+                                    cores),
+        device=dev, dtype=getattr(torch, FLEET_DTYPE))
+    mas.run(until=FLEET_UNTIL, join_timeout=FLEET_UNTIL + 240.0)
+    run_s = time.perf_counter() - t_phase
+    results = mas.get_results()
+    reports = {}
+    for aid in FLEET_AGENTS:
+        path = os.path.join(out_dir, f"{aid}.json")
+        check(os.path.exists(path),
+              f"module_fleet_mp: the {aid} process wrote no report")
+        with open(path) as fh:
+            reports[aid] = json.load(fh)
+        emit(fleet_process_line("module_fleet_mp", reports[aid]))
+    stats = results.get("Coordinator", {}).get("coordinator")
+    rounds = [] if stats is None else [
+        {"time": float(t), "iterations": len(g),
+         "primal_residual": g["primal_residual"].tolist()}
+        for t, g in stats.groupby(level="time")]
+    solving = [reports[a] for a in ("CooledRoom", "Cooler")]
+    totals = fleet_totals(solving)
+    emit({"phase": "module_fleet_mp", "dtype": FLEET_DTYPE,
+          "until_s": FLEET_UNTIL, "results_from": sorted(results),
+          "results_modules": {a: sorted(m) for a, m in results.items()},
+          "rounds": rounds, "launches": totals,
+          "launches_elsewhere": {a: {k: reports[a]["launches"][k] for k in
+                                     ("ldl_factor", "ldl_solve")}
+                                 for a in ("Coordinator", "Simulation")},
+          "run_seconds": run_s,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    check(sorted(results) == sorted(FLEET_AGENTS),
+          f"module_fleet_mp: results from {sorted(results)}")
+    check(len(rounds) >= FLEET_MIN_ROUNDS
+          and all(np.isfinite(r["primal_residual"]).all() for r in rounds),
+          f"module_fleet_mp: {len(rounds)} rounds completed")
+    check_fleet_solves("module_fleet_mp", solving)
+    check_shapes("module_fleet_mp", totals,
+                 [(1, s) for rep in solving
+                  for s in rep["kkt_size"].values()], FLEET_DTYPE)
+    for kernel in ("ldl_factor", "ldl_solve"):
+        check(all(rep["launches"][kernel] > 0 for rep in solving),
+              f"module_fleet_mp: {kernel} not launched in every solving "
+              f"process")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3412,6 +3848,9 @@ def main() -> int:
         return 0
     # ``--cpu-replay NAME``: card solves (pickled on stdin) replayed on the
     # CPU, one JSON line (the subprocesses of :meth:`References.replay`)
+    # ``--fleet-container``: one container process of module_fleet_mqtt
+    if "--fleet-container" in sys.argv:
+        return fleet_container_child()
     if "--cpu-replay" in sys.argv:
         torch.set_num_threads(1)
         name = sys.argv[sys.argv.index("--cpu-replay") + 1]
@@ -3476,9 +3915,10 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
     by_path["module_one_room"] = timed(
         "module_one_room", phase_module_one_room, torch, dev, smi,
         refs.get("module_one_room"))
-    by_path["module_linear_qp"] = timed(
+    by_path["module_linear_qp"], qp_solves = timed(
         "module_linear_qp", phase_module_linear_qp, torch, dev, smi,
         refs.get("module_linear_qp"))
+    refs.replay("module_linear_qp", [row["start"] for row in qp_solves])
     by_path["module_mhe"] = timed("module_mhe", phase_module_mhe, torch,
                                   dev, smi, refs.get("module_mhe"))
     by_path["module_minlp_cia"], cia_run = timed(
@@ -3499,8 +3939,18 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
     by_path["module_admm_exchange"] = timed(
         "module_admm_exchange", phase_module_admm_exchange, torch, dev, smi,
         refs.get("module_admm_exchange"))
+    fleet_cores = sorted(set(cores["card_process"])
+                         | set(cores["cpu_subprocesses"]))
+    by_path["module_fleet_mqtt"] = timed(
+        "module_fleet_mqtt", phase_module_fleet_mqtt, torch, dev, smi,
+        fleet_cores)
+    by_path["module_fleet_mp"] = timed(
+        "module_fleet_mp", phase_module_fleet_mp, torch, dev, smi,
+        fleet_cores)
     timed("module_minlp_cia_replay", phase_cia_replay, cia_run,
           refs.get("replay:module_minlp_cia"))
+    timed("module_linear_qp_replay", phase_linear_qp_replay, qp_solves,
+          refs.get("replay:module_linear_qp"))
     new_shapes = timed("path_shapes", phase_path_shapes, torch, dev,
                        by_path)
     for k in kernels:

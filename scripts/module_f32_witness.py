@@ -40,7 +40,12 @@ card's factor in the port), from ``agentlib_mpc_torch/reference_configs.py``
 - ``fixed_3900_counts``: the wedged exits of both packages from those
   starts, with the number of starts and the seed, on a line of its own.
 
-``--only fixed_3900`` runs that program alone (a few minutes).
+- ``mhe_qp_iterations``: the MHE QP's iterations per solve in the MHE
+  example's four loops (both packages, both types; also in each ``loop``
+  line as ``mhe_iterations``).
+
+``--only fixed_3900`` runs that program alone (a few minutes); ``--only
+mhe`` the MHE example's four loops and the ``mhe_qp_iterations`` line.
 
 With ``--out`` the lines are also written to that file. Takes about 15
 minutes on a 4-core CPU; the loops run in parallel subprocesses.
@@ -152,6 +157,9 @@ def run_loop(pkg: str, dtype: str, example: str, capture: str | None):
         out["mhe_failed_at"] = [r["time"] for r in mhe.backend.stats_history
                                 if not r["success"]]
         out["load_estimate_W"] = float(mhe.get_value("load"))
+        out["mhe_qp"] = mhe.backend.uses_qp_fast_path
+        out["mhe_iterations"] = [r["iterations"]
+                                 for r in mhe.backend.stats_history]
     else:
         out["duty_cycle"] = float(np.mean([r["on"] for r in rows]))
     if capture:
@@ -404,6 +412,20 @@ def child(argv):
     print("RESULT " + json.dumps(out), flush=True)
 
 
+def mhe_iterations(lines) -> dict:
+    """The MHE QP's iterations per solve in the MHE example's loops, by
+    package and type, on a line of its own."""
+    out = {"line": "mhe_qp_iterations"}
+    for line in lines:
+        if line.get("line") == "loop" and line.get("example") == "mhe":
+            its = line["mhe_iterations"]
+            out[f"{line['package']}_{line['dtype']}"] = {
+                "qp": line["mhe_qp"], "solves": len(its),
+                "iterations": sum(its), "per_solve": sum(its) / len(its),
+                "failed": len(line["mhe_failed_at"])}
+    return out
+
+
 def wedge_counts(line: dict) -> dict:
     """The ``fixed_3900`` line's wedged exits on a line of their own."""
     pert = line["perturbed"]
@@ -440,8 +462,9 @@ def main() -> int:
                         "inputs at t = 3 900 s there (JSON)")
     parser.add_argument("--starts", type=int, default=80,
                         help="perturbed starts of the fixed program")
-    parser.add_argument("--only", choices=("fixed_3900",),
-                        help="run only that line")
+    parser.add_argument("--only", choices=("fixed_3900", "mhe"),
+                        help="run only that line, or only the MHE "
+                        "example's loops")
     args = parser.parse_args()
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2"}
     tmp = tempfile.mkdtemp(prefix="module_f32_witness_")
@@ -465,10 +488,15 @@ def main() -> int:
             spawn(["replay", "torch", caps["jax"], "perturbed"], env)])
         lines += collect([spawn(["trace", caps["jax"]], env),
                           spawn(fixed, env)])
+    elif args.only == "mhe":
+        lines += collect([spawn(job, env) for job in jobs
+                          if job[3] == "mhe"])
     else:
         lines += collect([spawn(fixed, env)])
     lines += [wedge_counts(line) for line in lines
               if line.get("line") == "fixed_3900"]
+    if any(line.get("example") == "mhe" for line in lines):
+        lines.append(mhe_iterations(lines))
     text = "\n".join(json.dumps(line) for line in lines)
     print(text)
     if args.out:
