@@ -4,9 +4,9 @@ Port of ``agentlib_mpc_tpu/backends/``: the registry (string type → class),
 the base class, model loading, the config translators, the central-MPC
 :class:`JAXBackend`, the MHE backend and the MINLP backends (rounding,
 CIA, branch-and-bound) and the ADMM backend (``jax_admm``/
-``casadi_admm``). Importing this package registers the ported types; the
-ML backends (ROADMAP Queue 1 item 3) are not ported yet, and a config
-naming one raises ``NotImplementedError`` naming its item.
+``casadi_admm``) and the ML backends (``jax_ml``/``casadi_ml``/
+``casadi_nn`` and ``jax_admm_ml``/``casadi_admm_ml``). Importing this
+package registers the ported types.
 """
 
 from agentlib_mpc_torch.backends.backend import (
@@ -26,3 +26,4 @@ from agentlib_mpc_torch.backends.minlp_backend import (
     CIABackend,
     MINLPBackend,
 )
+from agentlib_mpc_torch.backends.ml_backend import MLADMMBackend, MLBackend

@@ -9,10 +9,10 @@ repeated ``solve(now, variables)`` calls. Every backend runs on an explicit
 passes its agent's. Its warm state stays on that device; what it returns
 to the module (``u0``, trajectories, the stats row) is host numbers.
 
-A config naming a backend type of a later slice of the port raises
+A config naming a backend type of a later slice of the port would raise
 ``NotImplementedError`` naming its ROADMAP item
-(:data:`DEFERRED_BACKEND_TYPES`); ML model configs wait for item 3 and
-:meth:`OptimizationBackend.problem_fingerprint` for item 5.
+(:data:`DEFERRED_BACKEND_TYPES`, empty since the ML slice);
+:meth:`OptimizationBackend.problem_fingerprint` waits for item 5.
 """
 
 from __future__ import annotations
@@ -42,10 +42,7 @@ backend_types: dict[str, Type["OptimizationBackend"]] = {}
 
 #: backend types of the JAX package whose slice of the port has not come
 #: yet, with the ROADMAP Queue 1 item that brings each
-DEFERRED_BACKEND_TYPES: dict[str, str] = {
-    **dict.fromkeys(("jax_ml", "casadi_ml", "casadi_nn", "jax_admm_ml",
-                     "casadi_admm_ml"), "3 (ML)"),
-}
+DEFERRED_BACKEND_TYPES: dict[str, str] = {}
 
 
 def load_custom_class(file: str, class_name: str):
@@ -150,13 +147,15 @@ def load_model(model_cfg: dict | Model, dt: float | None = None) -> Model:
 
 def load_model_for_backend(model_cfg: dict | Model,
                            dt: float | None = None) -> Model:
-    """Model loading for a module's backend: a config with
-    ``ml_model_sources`` names learned surrogates, which the ML slice
-    brings; every other config goes to :func:`load_model`."""
+    """Backend-aware model loading for the owning *module*: ML model
+    configs carry ``ml_model_sources`` that plain :func:`load_model` would
+    silently drop (the surrogates would never register and the NARX
+    transcription would see no learned states). Dispatches to the ML
+    loader when the config asks for it."""
     if isinstance(model_cfg, dict) and model_cfg.get("ml_model_sources"):
-        raise NotImplementedError(
-            "ML model configs (ml_model_sources) need the ML slice, which "
-            "is not ported yet (ROADMAP Queue 1 item 3)")
+        from agentlib_mpc_torch.backends.ml_backend import load_ml_model
+
+        return load_ml_model(model_cfg, dt=dt)
     return load_model(model_cfg, dt=dt)
 
 

@@ -5,12 +5,12 @@ the ported module types: ``mpc``/``mpc_basic``/``mpc_full``, ``simulator``,
 ``pid``/``fallback_pid``, ``mpc_on_off``/``skip_mpc_intervals``,
 ``data_source``, ``set_point_generator``,
 ``try_predictor``/``input_predictor``, ``mhe``, ``minlp_mpc``, the
-decentralized ADMM modules ``admm_local``/``local_admm`` and ``admm``, and
+decentralized ADMM modules ``admm_local``/``local_admm`` and ``admm``,
 the coordinator-based ADMM modules ``admm_coordinator`` and
-``admm_coordinated`` (``runtime.module.create_module`` imports it before
-its first lookup). A config naming a type of a later slice (ML) raises
-``NotImplementedError`` naming its ROADMAP item
-(``runtime.module.DEFERRED_MODULE_TYPES``).
+``admm_coordinated``, the ``ml_simulator`` and the trainers
+``ann_trainer``, ``gpr_trainer``, ``linreg_trainer`` and
+``keras_ann_trainer`` (``runtime.module.create_module`` imports it before
+its first lookup).
 """
 
 from agentlib_mpc_torch.modules.mpc import BaseMPC, MINLPMPC, MPC
@@ -30,3 +30,11 @@ from agentlib_mpc_torch.modules.deactivate_mpc import (
 )
 from agentlib_mpc_torch.modules.pid import PID, FallbackPID
 from agentlib_mpc_torch.modules.input_prediction import InputPredictor
+from agentlib_mpc_torch.modules.ml_simulator import MLSimulator
+from agentlib_mpc_torch.modules.ml_trainer import (
+    ANNTrainer,
+    GPRTrainer,
+    KerasANNTrainer,
+    LinRegTrainer,
+    MLModelTrainer,
+)

@@ -371,8 +371,8 @@ class BaseMPC(SkippableMixin, BaseModule):
 @register_module("mpc_full")
 class MPC(BaseMPC):
     """Alias of the full MPC (the reference's ``mpc`` type adds NARX lag
-    history on top of BaseMPC; in the JAX package lag collection lives in
-    the ML backend, which comes with ROADMAP Queue 1 item 3)."""
+    history on top of BaseMPC; here, as in the JAX package, lag collection
+    lives in the ML backend, ``backends/ml_backend.py``)."""
 
 
 @register_module("minlp_mpc")

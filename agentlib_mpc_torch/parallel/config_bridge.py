@@ -9,8 +9,10 @@ in one engine.
 
 Scope: input couplings (the coupling variable is a control input of the
 agent's model). Output-expression couplings need the expression machinery
-of the ADMM backend and raise a pointed ``NotImplementedError``; ML model
-configs raise one too until the ML slice (ROADMAP Queue 1 item 3).
+of the ADMM backend and raise a pointed ``NotImplementedError``. ML model
+configs (``ml_model_sources``) transcribe through the NARX path
+(``ops/ml_transcription.py``); each agent's surrogate weights ride its
+theta.
 
 Typical use::
 
@@ -36,7 +38,9 @@ from agentlib_mpc_torch.backends.mpc_backend import (
     solver_options_from_config,
     transcription_kwargs_from_config,
 )
+from agentlib_mpc_torch.models.ml_model import MLModel
 from agentlib_mpc_torch.models.model import Model
+from agentlib_mpc_torch.ops.ml_transcription import transcribe_ml
 from agentlib_mpc_torch.ops.transcription import TranscribedOCP, transcribe
 from agentlib_mpc_torch.parallel.fused_admm import (
     FusedADMM,
@@ -70,6 +74,11 @@ class _FleetAgent:
             kw["d_traj"] = np.broadcast_to(
                 np.array([self.exo[n] for n in ocp.exo_names], dtype=float),
                 (N, len(ocp.exo_names))).copy()
+        if isinstance(self.model, MLModel):
+            # learned weights ride theta (ops/ml_transcription.py): each
+            # agent's OWN surrogate parameters, even though
+            # structure-identical agents share one transcription
+            kw["ml_params"] = self.model.ml_params
         theta = ocp.default_params(device=device, dtype=dtype, **kw)
         # config-level lb/ub on couplings/controls override the model's
         if self.u_bounds:
@@ -169,6 +178,8 @@ class FusedFleet:
             backend = m.get("optimization_backend") or {}
             N = int(m.get("prediction_horizon", 10))
             dt = float(m.get("time_step", 300.0))
+            # ML-aware loading: configs with ml_model_sources come back as
+            # MLModel and transcribe through the NARX path below
             model = load_model_for_backend(backend.get("model", {}), dt=dt)
             if N_ref is None:
                 N_ref = N
@@ -222,19 +233,36 @@ class FusedFleet:
                     if "lb" in e or "ub" in e:
                         _merge_bounds(e)
 
-            trans_kwargs = transcription_kwargs_from_config(
-                backend.get("discretization_options"))
-            key = (type(model), tuple(control_names), N, dt,
-                   tuple(sorted(trans_kwargs.items())))
-            if key not in ocp_cache:
-                ocp_cache[key] = transcribe(model, control_names, N=N,
-                                            dt=dt, **trans_kwargs)
+            if isinstance(model, MLModel):
+                # NARX shooting over the learned step (discretization
+                # options do not apply: the surrogate is the integrator).
+                # The cache key carries the surrogate's lag STRUCTURE:
+                # same-structure agents share one transcription (their
+                # weights ride theta.ml_params); different lag layouts
+                # need their own
+                key = (type(model), tuple(control_names), N, dt, "ml",
+                       tuple(sorted(model.ml_lags.items())))
+                if key not in ocp_cache:
+                    ocp_cache[key] = transcribe_ml(model, control_names,
+                                                   N=N, dt=dt)
+            else:
+                trans_kwargs = transcription_kwargs_from_config(
+                    backend.get("discretization_options"))
+                key = (type(model), tuple(control_names), N, dt,
+                       tuple(sorted(trans_kwargs.items())))
+                if key not in ocp_cache:
+                    ocp_cache[key] = transcribe(model, control_names, N=N,
+                                                dt=dt, **trans_kwargs)
             ocp = ocp_cache[key]
 
             state_vals = _values(m.get("states"))
+            # ML OCPs order their state vector by dyn_names (NARX +
+            # white-box states); physical OCPs by diff_state_names
+            state_names = list(getattr(ocp, "dyn_names", None)
+                               or model.diff_state_names)
             x0 = np.array([
                 state_vals.get(n, model.get_var(n).value)
-                for n in model.diff_state_names], dtype=float)
+                for n in state_names], dtype=float)
             param_vals = _values(m.get("parameters"))
             p = np.array([
                 param_vals.get(v.name, v.value) for v in model.parameters],

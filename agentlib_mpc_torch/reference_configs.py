@@ -50,7 +50,18 @@
   ``examples/exchange_admm_4rooms.py``: four ``ExchangeRoom`` agents and the
   ``AirSupplier``, each an ``admm_local`` module (12 ADMM iterations, rho
   50, budget 60) on the one exchange alias ``air_balance``, and the four
-  simulated rooms (``rooms`` picks a subset of the rooms).
+  simulated rooms (``rooms`` picks a subset of the rooms);
+- the data-driven examples: :class:`SurrogateRoom` with
+  :func:`ml_room_training_data`, :func:`train_room_surrogate`,
+  :func:`ml_room_plant_step` and :func:`ml_mpc_backend_config`
+  (``examples/ml_mpc_one_room.py``: an ANN NARX surrogate of a
+  first-order room, hidden (16, 16), 300 epochs, lr 3e-3, controlled by
+  ``jax_ml`` at N=10 and a step every 300 s), and :class:`ZoneSurrogate`,
+  :class:`ThreePortAHU`, :func:`train_zone_surrogate` and
+  :func:`three_zone_datadriven_configs`
+  (``examples/three_zone_datadriven_admm.py``: three ``jax_admm_ml``
+  zones and the physical AHU as ``admm_local`` modules, HORIZON 8, 10 ADMM
+  iterations, rho 20, and three simulated ``CooledRoom`` plants).
 
 The three coordinator and four-room configs use degree-2 Legendre
 collocation, N=8 and a step every 300 s, as their sources do.
@@ -64,6 +75,9 @@ Each takes a ``solver`` dict merged over its solver options (for example
 
 from __future__ import annotations
 
+import numpy as np
+
+from agentlib_mpc_torch.models.ml_model import MLModel
 from agentlib_mpc_torch.models.model import Model, ModelEquations
 from agentlib_mpc_torch.models.objective import SubObjective
 from agentlib_mpc_torch.models.variables import (
@@ -764,3 +778,269 @@ def exchange_admm_4rooms_configs(max_iterations: int = 12,
     }
     sims = [_four_room_sim(i, "ExchangeRoom") for i in rooms]
     return [*agents, supplier, *sims]
+
+
+# -- the data-driven examples ------------------------------------------------
+
+#: examples/ml_mpc_one_room.py: step (s), capacity (J/K), heat load (W) and
+#: comfort bound (K)
+ML_DT, ML_C_CAP, ML_LOAD, ML_UB = 300.0, 100000.0, 180.0, 295.15
+
+
+def ml_room_plant_step(T: float, Q: float) -> float:
+    """The example's 'real' building (first-order energy balance)."""
+    return float(np.clip(T + ML_DT / ML_C_CAP * (ML_LOAD - Q), 285.0,
+                         310.0))
+
+
+def ml_room_training_data(n_steps: int = 500, seed: int = 0):
+    """The example's excitation data: uniform random heat flows."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    T, rows = 296.0, []
+    for k in range(n_steps):
+        Q = float(rng.uniform(0.0, 1000.0))
+        rows.append((k * ML_DT, Q, T))
+        T = ml_room_plant_step(T, Q)
+    return pd.DataFrame(rows, columns=["t", "Q", "T"]).set_index("t")
+
+
+def _train_narx(df, dt, u_name, epochs, seed, split_seed, device, dtype,
+                return_data=False):
+    """The examples' pipeline: (u, T) -> dT, difference mode, recursive,
+    hidden (16, 16), lr 3e-3."""
+    from agentlib_mpc_torch.ml.serialized import Feature, OutputFeature
+    from agentlib_mpc_torch.ml.training import (
+        ANNTrainerCore,
+        create_lagged_features,
+        fit_ann,
+        resample,
+        train_val_test_split,
+    )
+
+    inputs = {u_name: Feature(name=u_name, lag=1)}
+    output = {"T": OutputFeature(name="T", output_type="difference",
+                                 recursive=True)}
+    X, y = create_lagged_features(resample(df, dt, method="previous"),
+                                  inputs, output)
+    data = train_val_test_split(X, y, (0.7, 0.15, 0.15), seed=split_seed)
+    doc = fit_ann(data.training_inputs, data.training_outputs,
+                  data.validation_inputs, data.validation_outputs,
+                  dt=dt, inputs=inputs, output=output,
+                  trainer=ANNTrainerCore(hidden=(16, 16), epochs=epochs,
+                                         learning_rate=3e-3, seed=seed,
+                                         device=device, dtype=dtype))
+    return (doc, data) if return_data else doc
+
+
+def train_room_surrogate(df, epochs: int = 300, device=None,
+                         dtype=None, return_data: bool = False):
+    """examples/ml_mpc_one_room.py's ``train_surrogate`` on ``device``
+    (None: the card) in ``dtype`` (None: float64); with ``return_data``
+    also the train/validation/test split it trained on."""
+    import torch
+
+    return _train_narx(df, ML_DT, "Q", epochs, 0, 0, device,
+                       dtype or torch.float64, return_data)
+
+
+def ml_mpc_backend_config(surrogate, solver: dict | None = None) -> dict:
+    """The example's ``jax_ml`` backend config (``max_iter`` 60)."""
+    return {"type": "jax_ml",
+            "model": {"class": SurrogateRoom, "ml_model_sources": [surrogate]},
+            "solver": {"max_iter": 60, **(solver or {})}}
+
+
+class SurrogateRoom(MLModel):
+    """examples/ml_mpc_one_room.py's model: ``T`` from the surrogate, a
+    soft comfort bound and an energy cost."""
+
+    inputs = [control_input("Q", 0.0, lb=0.0, ub=1000.0, unit="W"),
+              control_input("T_upper", ML_UB)]
+    states = [state("T", 296.0, lb=285.15, ub=310.15),
+              state("T_slack", 0.0)]
+    parameters = [parameter("s_T", 1.0), parameter("r_Q", 1e-4)]
+    dt = ML_DT
+
+    def setup(self, v):
+        eq = ModelEquations()
+        eq.constraint(0.0, v.T + v.T_slack, v.T_upper)
+        eq.objective = (
+            SubObjective(v.Q, weight=v.r_Q, name="energy")
+            + SubObjective(v.T_slack ** 2, weight=v.s_T, name="comfort"))
+        return eq
+
+
+#: examples/three_zone_datadriven_admm.py: zones, horizon, comfort bound,
+#: start and supply temperature (K), heat capacity terms, the zones' loads
+#: (W) and the AHU's shared capacity (m³/s)
+ZONES_N, ZONES_HORIZON = 3, 8
+ZONES_UB, ZONES_START, ZONES_T_IN = 295.15, 298.16, 290.15
+ZONES_CP, ZONES_C_CAP = 1000.0, 100000.0
+ZONES_LOADS = (90.0, 130.0, 170.0)
+ZONES_MDOT_MAX = 0.075
+
+
+def zone_plant_step(T: float, mDot: float, load: float) -> float:
+    """The example's 'true' zone (explicit Euler on the control grid)."""
+    return float(T + ML_DT * (ZONES_CP * mDot / ZONES_C_CAP
+                              * (ZONES_T_IN - T) + load / ZONES_C_CAP))
+
+
+def zone_training_data(load: float, seed: int = 0):
+    """The example's excitation data of one zone: 400 random flows."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    T, rows = 296.0, []
+    for k in range(400):
+        mDot = float(rng.uniform(0.0, 0.05))
+        rows.append((k * ML_DT, mDot, T))
+        T = zone_plant_step(T, mDot, load)
+    return pd.DataFrame(rows, columns=["t", "mDot", "T"]).set_index("t")
+
+
+def train_zone_surrogate(load: float, epochs: int = 300, seed: int = 0,
+                         device=None, dtype=None,
+                         return_data: bool = False):
+    """examples/three_zone_datadriven_admm.py's ``train_zone_surrogate``
+    on ``device`` (None: the card) in ``dtype`` (None: float64)."""
+    import torch
+
+    return _train_narx(zone_training_data(load, seed), ML_DT, "mDot",
+                       epochs, 0, seed, device, dtype or torch.float64,
+                       return_data)
+
+
+class ZoneSurrogate(MLModel):
+    """The example's zone: ``T`` from the surrogate, the comfort bound and
+    objective declarative."""
+
+    inputs = [
+        control_input("mDot", 0.02, lb=0.0, ub=0.05, unit="m^3/s"),
+        control_input("T_upper", ZONES_UB),
+    ]
+    states = [
+        state("T", 296.0, lb=285.15, ub=310.15),
+        state("T_slack", 0.0),
+    ]
+    parameters = [parameter("s_T", 1.0)]
+    dt = ML_DT
+
+    def setup(self, v):
+        eq = ModelEquations()
+        eq.constraint(0.0, v.T + v.T_slack, v.T_upper)
+        eq.objective = SubObjective(v.T_slack ** 2, weight=v.s_T,
+                                    name="comfort")
+        return eq
+
+
+class ThreePortAHU(Model):
+    """The example's AHU: three outlets under one shared capacity."""
+
+    inputs = [
+        control_input(f"mDot_{i}", 0.02, lb=0.0, ub=0.05, unit="m^3/s")
+        for i in range(1, ZONES_N + 1)
+    ]
+    parameters = [
+        parameter("mDot_max", ZONES_MDOT_MAX),
+        parameter("r_mDot", 1.0),
+    ]
+    outputs = [output(f"mDot_out_{i}", 0.02, unit="m^3/s")
+               for i in range(1, ZONES_N + 1)]
+
+    def setup(self, v):
+        eq = ModelEquations()
+        total = v.mDot_1 + v.mDot_2 + v.mDot_3
+        for i in range(1, ZONES_N + 1):
+            eq.alg(f"mDot_out_{i}", getattr(v, f"mDot_{i}"))
+        eq.constraint(0.0, total, v.mDot_max)
+        eq.objective = SubObjective(total, weight=v.r_mDot,
+                                    name="flow_costs")
+        return eq
+
+
+def three_zone_datadriven_configs(surrogates, max_iterations: int = 10,
+                                  penalty_factor: float = 20.0,
+                                  solver: dict | None = None):
+    """The example's ``agent_configs``: three zones, the AHU and three
+    simulated ``CooledRoom`` plants."""
+    solver = {"max_iter": 60, **(solver or {})}
+    zones, sims = [], []
+    for i in range(1, ZONES_N + 1):
+        zones.append({
+            "id": f"Zone_{i}",
+            "modules": [
+                {"module_id": "com", "type": "local_broadcast"},
+                {"module_id": "admm", "type": "admm_local",
+                 "optimization_backend": {
+                     "type": "jax_admm_ml",
+                     "model": {"class": ZoneSurrogate,
+                               "ml_model_sources": [surrogates[i - 1]]},
+                     "solver": dict(solver),
+                 },
+                 "time_step": ML_DT,
+                 "prediction_horizon": ZONES_HORIZON,
+                 "max_iterations": max_iterations,
+                 "penalty_factor": penalty_factor,
+                 "parameters": [{"name": "s_T", "value": 1.0}],
+                 "inputs": [{"name": "T_upper", "value": ZONES_UB}],
+                 "states": [
+                     {"name": "T", "value": ZONES_START, "ub": 310.15,
+                      "lb": 285.15, "alias": f"T_{i}",
+                      "source": f"Simulation_{i}"},
+                 ],
+                 "controls": [],
+                 "couplings": [
+                     {"name": "mDot", "alias": f"air_{i}", "value": 0.02,
+                      "ub": 0.05, "lb": 0.0},
+                 ]},
+            ],
+        })
+        sims.append({
+            "id": f"Simulation_{i}",
+            "modules": [
+                {"module_id": "com", "type": "local_broadcast"},
+                {"module_id": "simulator", "type": "simulator",
+                 "model": {"class": "CooledRoom",
+                           "states": [{"name": "T", "value": ZONES_START}],
+                           "inputs": [{"name": "load",
+                                       "value": ZONES_LOADS[i - 1]}]},
+                 "t_sample": 60,
+                 "outputs": [{"name": "T_out", "value": ZONES_START,
+                              "alias": f"T_{i}"}],
+                 "inputs": [{"name": "mDot", "value": 0.02,
+                             "alias": f"mDot_{i}"}]},
+            ],
+        })
+    ahu = {
+        "id": "AHU",
+        "modules": [
+            {"module_id": "com", "type": "local_broadcast"},
+            {"module_id": "admm", "type": "admm_local",
+             "optimization_backend": {
+                 "type": "jax_admm",
+                 "model": {"class": ThreePortAHU},
+                 "discretization_options": {"collocation_order": 1},
+                 "solver": dict(solver),
+             },
+             "time_step": ML_DT,
+             "prediction_horizon": ZONES_HORIZON,
+             "max_iterations": max_iterations,
+             "penalty_factor": penalty_factor,
+             "parameters": [{"name": "r_mDot", "value": 1.0},
+                            {"name": "mDot_max", "value": ZONES_MDOT_MAX}],
+             "controls": [
+                 {"name": f"mDot_{i}", "value": 0.02, "ub": 0.05,
+                  "lb": 0.0, "alias": f"mDot_{i}"}
+                 for i in range(1, ZONES_N + 1)
+             ],
+             "couplings": [
+                 {"name": f"mDot_out_{i}", "alias": f"air_{i}",
+                  "value": 0.02}
+                 for i in range(1, ZONES_N + 1)
+             ]},
+        ],
+    }
+    return [*zones, ahu, *sims]

@@ -11,9 +11,9 @@ receives variable updates through broker callbacks, and contributes a
 
 Modules read the agent's ``device`` and ``dtype`` (set on
 :class:`~agentlib_mpc_torch.runtime.agent.Agent`); nothing else chooses a
-device. A config naming a module type of a later slice of the port raises
-``NotImplementedError`` naming its ROADMAP item
-(:data:`DEFERRED_MODULE_TYPES`).
+device. A config naming a module type of a later slice of the port would
+raise ``NotImplementedError`` naming its ROADMAP item
+(:data:`DEFERRED_MODULE_TYPES`, empty since the ML slice).
 
 Config shape (compatible with the reference's agent configs):
     {"module_id": "myMPC", "type": "mpc", <scalar options...>,
@@ -40,10 +40,7 @@ MODULE_TYPES: dict[str, Type["BaseModule"]] = {}
 
 #: module types of the JAX package whose slice of the port has not come
 #: yet, with the ROADMAP Queue 1 item that brings each
-DEFERRED_MODULE_TYPES: dict[str, str] = {
-    **dict.fromkeys(("ml_simulator", "ann_trainer", "gpr_trainer",
-                     "linreg_trainer", "keras_ann_trainer"), "3 (ML)"),
-}
+DEFERRED_MODULE_TYPES: dict[str, str] = {}
 
 
 def register_module(*names: str):

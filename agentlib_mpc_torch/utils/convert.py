@@ -33,6 +33,11 @@ participants' local trajectories and multipliers by source, the mean and
 the mean before it, exchange deviations and the shared multiplier, the
 penalty and the participants' statuses) through
 :func:`coordinator_state_from_jax` into :func:`load_coordinator_state`.
+An ML model's trained parameters (``MLModel.ml_params``, a pytree of
+arrays per surrogate) come in through :func:`ml_params_from_jax`, and into
+an ML backend (its model and its device copy) through
+:func:`load_ml_model_state`; serialized model documents need no
+conversion (both packages read and write the same JSON).
 """
 
 from __future__ import annotations
@@ -272,3 +277,49 @@ def load_coordinator_state(coord, state: Mapping) -> None:
                 missed_rounds=int(entry["missed_rounds"]))
             for (a, m), entry in state["agents"].items()}
         coord.penalty_parameter = float(state["penalty_parameter"])
+
+
+def ml_params_from_jax(model_or_params, device=None,
+                       dtype: torch.dtype = torch.float64) -> dict:
+    """An ML model's trained parameters (another framework's
+    ``MLModel.ml_params``, or the model itself) as the port's pytree:
+    every array leaf a tensor on ``device`` (None: the card) in
+    ``dtype``, the nesting (per surrogate key, per parameter name, lists
+    of layers) kept."""
+    params = getattr(model_or_params, "ml_params", model_or_params)
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return leaf(node)
+
+    return walk(params)
+
+
+def load_ml_model_state(backend, model_or_params) -> None:
+    """Put another framework's trained ML parameters (its model or its
+    ``ml_params``) into the port's ML backend ``backend``: its model's
+    host copy (float64 on the CPU) and the copy its solves use (its
+    device and dtype). The surrogate structure must be the same."""
+    from agentlib_mpc_torch.ml.predictors import cast_params
+
+    host = ml_params_from_jax(model_or_params, device="cpu")
+    model = backend.model
+    if set(host) != set(model.ml_params):
+        raise KeyError(f"surrogates {sorted(host)} do not match the "
+                       f"backend's {sorted(model.ml_params)}")
+    for key, params in host.items():
+        old = tree_map(lambda t: tuple(t.shape), model.ml_params[key])
+        new = tree_map(lambda t: tuple(t.shape), params)
+        if old != new:
+            raise ValueError(f"surrogate {key!r}: parameter shapes {new} "
+                             f"do not match the backend's {old}")
+    model.ml_params.update(host)
+    backend._theta0 = backend._theta0._replace(ml_params=cast_params(
+        model.ml_params, backend.device, backend.dtype))

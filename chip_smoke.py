@@ -105,7 +105,7 @@ non-zero without printing a result:
               (``agentlib_mpc_torch/reference_configs.py``; the ``mpc``
               module on the ``jax`` backend, N=15, degree-2 Legendre
               collocation, KKT 137; the ``simulator`` every 10 s) for
-              2 400 s in f32 on the card: launch counters reset just before
+              1 800 s in f32 on the card: launch counters reset just before
               and read just after (only at (1, 137), one factor and three
               solves per interior-point iteration), every solve successful
               with the actuation guard at level 0 and no warm-start reset;
@@ -123,8 +123,9 @@ non-zero without printing a result:
               the CPU is reported beside it. (In f32 the pivot-free LDLᵀ
               breaks down on this QP in both packages:
               ``scripts/linear_qp_f32_witness.py``.)
-17. module_mhe — ``examples/mhe_one_room.py``'s two agents for 3 600 s
-              in f32 on the card (the module path's default): the
+17. module_mhe — ``examples/mhe_one_room.py``'s two agents for 1 800 s
+              (cut from the example's 3 600 s for the script's time
+              limit) in f32 on the card (the module path's default): the
               ``mhe`` module (``jax_mhe``, horizon 10, its estimation OCP
               certified LQ: the QP fast path at (1, 142), one factor and
               six solves per QP iteration) beside an ``mpc`` that
@@ -138,8 +139,8 @@ non-zero without printing a result:
               search's noise allowance as no progress, its MPC failed 3
               of 31 solves here in f32: ``scripts/module_f32_witness.py``.)
 18. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
-              agent for 3 600 s in f64 (half the example's run, for the
-              script's time limit): the relaxed program on the QP at
+              agent for 1 800 s in f64 (a quarter of the example's run,
+              for the script's time limit): the relaxed program on the QP at
               (1, 34), the CIA schedule from the native library
               (``csrc/cia.cpp``, never the Python version), the fixed
               program at (1, 26); launches exact per solve; the example's
@@ -160,7 +161,7 @@ non-zero without printing a result:
               module_mhe, module_admm and module_admm_exchange each have a
               ``*_profile`` line.
 20. module_admm — ``examples/admm_cooled_room.py``'s three agents for
-              900 s in f32 (three control steps, for the script's time
+              600 s in f32 (two control steps, for the script's time
               limit): the room and the cooler as ``admm_local``
               modules over ``jax_admm``, whose augmented problems route by
               their certificates (the room's NLP at (1, 74), one factor
@@ -188,7 +189,8 @@ non-zero without printing a result:
               launches exact per iteration over both threads.
 22. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
               agents for 300 s (one round; two until the fleet phases
-              came) in f64 (in f32 the JAX
+              came), 8 ADMM iterations (the example's 15, cut when the ML
+              phases came), in f64 (in f32 the JAX
               package's loop fails two room solves on the pivot-free LDLᵀ:
               ``scripts/admm_f32_witness.py``): an ``admm_coordinator``
               drives four ``CooledRoom`` participants (NLP at (1, 74), one
@@ -210,13 +212,42 @@ non-zero without printing a result:
               agents (NLP at (1, 74), 1:3) and the supplier (QP at (1, 8),
               1:6) as ``admm_local`` modules on one exchange alias; every
               solve successful at guard level 0 with no warm-start reset,
-              12 ADMM iterations per step on all five, each registered its
+              6 ADMM iterations per step on all five (the example's 12,
+              cut for the script's time limit), each registered its
               four peers; the example's balance gate (supplier against the
               rooms' total within 0.02 m³/s) and the building cools; each
               room's final temperature within 0.01 K and the supplier's
               flow within 1e-4 m³/s of the same loop in f64 on the CPU; a
               profiled room solve.
-24. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
+24. module_ml_mpc — ``examples/ml_mpc_one_room.py`` through the port: the
+              example's 500 seeded plant steps train its ANN NARX
+              surrogate (hidden (16, 16), 300 epochs, lr 3e-3) on the card
+              in f64 with ``ANNTrainerCore``; a CPU f64 training of the same
+              seed (in the reference subprocess) gives the reference
+              weights, and the card's final validation MSE must lie within
+              1 % of the CPU's (the largest weight difference printed).
+              Then the example's loop on ``jax_ml`` (N=10, ``max_iter``
+              60, KKT (1, 42)) for 6 000 s (20 steps) in f64 on the card
+              with the CPU-trained surrogate, held against the same loop
+              in f64 on the CPU: the example's gates (the mean of the last
+              five temperatures below 295.45 K, at most two failed solves),
+              every plant temperature within 1e-4 K, launches exact (one
+              factor and three solves per iteration); cold and warm solve
+              ms, training seconds and a profiled warm solve (``ml.predict``
+              inside ``ipm.eval_jac``).
+25. module_ml_admm — ``examples/three_zone_datadriven_admm.py``'s seven
+              agents through LocalMAS for one control step (300 s) in f64:
+              three ``ZoneSurrogate`` zones on ``jax_admm_ml`` (HORIZON 8,
+              ``max_iter`` 60) and the physical AHU on ``jax_admm``, 10 ADMM
+              iterations, rho 20. The three surrogates are trained on the
+              card (seeds as in the example) and their validation MSEs held
+              within 1 % of the CPU's; the loop runs with the CPU-trained
+              surrogates, held against the same step in f64 on the CPU:
+              every local solve successful, the ADMM iterations and the
+              zones' coupling gap at the last iteration equal to the CPU's,
+              each zone's first move within 1e-6 m³/s of the CPU's,
+              launches exact.
+26. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
               they are: coordinated ADMM, the CooledRoom with its plant,
               the Cooler) as three container processes on the card in
               f64, joined over a ``MiniBroker`` of the port in this
@@ -226,21 +257,23 @@ non-zero without printing a result:
               then one JSON line with their launch counts, solves, CUDA
               context seconds and peak memory), device and dtype from
               ``AGENT_DEVICE``/``AGENT_DTYPE``. The participants stop
-              after 20 s of their clocks, then the coordinator gets
+              after 15 s of their clocks (20 s until the ML phases
+              came; at 12 s the relay fleet completed only its two
+              rounds), then the coordinator gets
               SIGTERM. Every process exits 0, messages crossed the
               broker, both participants registered, at least two rounds
               completed, every solve successful with exact launches only
               at the real-time pair's shapes in float64, the
               coordinator's CSV has its residual columns and the room's
               ADMM CSV loads through ``utils.analysis``.
-25. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
+27. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
               (one ``spawn``ed process each on its TCP relay, device
               ``cuda``, f64, real time at factor 1.0); each child's
               launch counts and solves are written at its exit by the
               ``bootstrap`` hook (:func:`fleet_child_bootstrap`): results
               from all four agents, at least two rounds, every solve
               successful, launches exact.
-26. path_shapes — every (B, M) a path launched, in each type it launched
+28. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
@@ -302,7 +335,10 @@ ZBAR_TOL = 2e-3
 SPREAD_TOL = 2e-3
 #: warm steps after the cold one on every path (their median is the warm
 #: time): with three, the whole script took 1 329 s on an H100 at 700 W,
-#: over the 1 200 s it may take
+#: over the 1 200 s it may take. Not one: qp_quality's converged QP/NLP
+#: check solves the subproblems at the last step's state, and after one
+#: warm step a lane's objectives differ by 14 % (NVIDIA H100 80GB HBM3,
+#: 700.00 W)
 N_WARM = 2
 #: warm steps of the day-ahead paths (long_horizon with its two LU
 #: references, qp_day_ahead, sparse_day_ahead): one, for the same limit
@@ -417,10 +453,11 @@ FLEET_RESUME_TOL = 0.0
 #: (agentlib_mpc_torch/reference_configs.py): the two-agent one-room MAS
 #: at its full size (N=15, degree-2 Legendre collocation, the plant every
 #: 10 s) and the linear-QP agent (N=8, LinearRCZone on the QP fast path,
-#: the plant every 300 s), 2 400 s (one-room: 9 solves and 240 plant
-#: steps; cut from 7 200 s, and from 3 600 s when the fleet phases came,
-#: for the script's time limit) and 7 200 s of closed loop
-ONE_ROOM_UNTIL = 2400.0
+#: the plant every 300 s), 1 800 s (one-room: 7 solves and 180 plant
+#: steps; cut from 7 200 s, from 3 600 s when the fleet phases came and
+#: from 2 400 s when the ML phases came, for the script's time limit) and
+#: 7 200 s of closed loop
+ONE_ROOM_UNTIL = 1800.0
 MODULE_UNTIL = 7200.0
 #: card f32 against the CPU's f64 with the plain LDLᵀ, relative, on the
 #: one-room loop's comfort error (AIE) and cooling energy: the JAX
@@ -452,9 +489,11 @@ LINEAR_QP_U0_TOL_W = 1e-6
 #: scripts/module_f32_witness.py)
 #:
 #: examples/mhe_one_room.py's two agents (MHE beside MPC, the plant with
-#: the true load) for the example's whole run, and its gates: the estimate
-#: within 40 W of the true 260 W, the room 1 K below its 298.16 K start
-MHE_UNTIL = 3600.0
+#: the true load) for 1 800 s (cut from the example's 3 600 s when the ML
+#: phases came; the f64 CPU loop then estimates 262.4 W and ends 1.7 K
+#: below the start), and its gates: the estimate within 40 W of the true
+#: 260 W, the room 1 K below its 298.16 K start
+MHE_UNTIL = 1800.0
 MHE_LOAD_GATE_W = 40.0
 MHE_COOLING_K = 1.0
 #: the card's final load estimate against the same loop in f64 on the CPU
@@ -463,10 +502,12 @@ MHE_LOAD_RTOL = 0.01
 #: examples/minlp_switched_room.py's gates: the actuated chiller command
 #: binary, the zone below UB + 0.5 K, a duty cycle strictly inside (0, 1)
 MINLP_UB_MARGIN_K = 0.5
-#: the jax_cia agent for half the example's run (12 controller steps; cut
-#: from 7 200 s for the script's time limit), against the same loop in f64
-#: on the CPU: final zone temperature (K) and duty cycle
-MINLP_CIA_UNTIL = 3600.0
+#: the jax_cia agent for a quarter of the example's run (7 controller
+#: steps; cut from 7 200 s, and from 3 600 s when the ML phases came, for
+#: the script's time limit; the f64 CPU loop then ends at 292.89 K with a
+#: duty of 0.83), against the same loop in f64 on the CPU: final zone
+#: temperature (K) and duty cycle
+MINLP_CIA_UNTIL = 1800.0
 MINLP_CIA_T_TOL_K = 0.05
 MINLP_CIA_DUTY_TOL = 0.02
 #: each solve of the card's f64 CIA loop replayed on the CPU in f64 (plain
@@ -491,13 +532,16 @@ MINLP_BB_UNTIL = 2100.0
 #: iterations per step) and its plant, in float32 on the card (with the
 #: plain LDLᵀ on the CPU the port's float32 loop fails none of its 36 + 36
 #: solves, the JAX package's 1: scripts/admm_f32_witness.py, ``loop``
-#: lines), to 900 s (3 control steps, 18 solves per agent; cut from the
-#: 1 800 s of tests/test_admm_module.py for the script's time limit). Its
+#: lines), to 600 s (2 control steps, 12 solves per agent; cut from the
+#: 1 800 s of tests/test_admm_module.py, and from 900 s when the ML phases
+#: came, for the script's time limit: the f64 CPU loop then ends at
+#: 296.97 K, with the agents 3.7e-3 m³/s apart; the port's f32 loop ends
+#: 2.6e-3 K from its f64 loop at 900 s on the CPU). Its
 #: gates: the room cools and ends below
 #: 297.0 K, the actuated air flow at most 0.05 m³/s, and at the last
 #: step's last iteration the two agents' air-flow trajectories within
 #: 5e-3 m³/s of each other (tests/test_admm_module.py:127-140)
-ADMM_UNTIL = 900.0
+ADMM_UNTIL = 600.0
 ADMM_ITERATIONS = 6
 ADMM_T_LIMIT_K = 297.0
 ADMM_MDOT_MAX = 0.05 + 1e-9
@@ -533,9 +577,14 @@ COORD_UNTIL = EXCHANGE_UNTIL = 300.0
 COORD_DTYPE, EXCHANGE_DTYPE = "float64", "float32"
 ROOMS = tuple(f"Room_{i}" for i in range(1, 5))
 SIMULATORS = tuple((f"Simulation_{i}", "simulator") for i in range(1, 5))
-#: the coordinator loop may fail one solve (of 75 in one round, 150 in
-#: two), and no room's (the JAX package's own float64 loop fails the AHU's
-#: at t = 300 s, in the second round)
+#: the coordinator's ADMM iterations per round: the example's 15, of which
+#: the last 7 were cut when the ML phases came, for the script's time
+#: limit (the f64 CPU loop then fails no solve, the building cools and the
+#: peak total flow is 0.08 m³/s, at 8 as at 10 iterations)
+COORD_ADMM_ITER_MAX = 8
+#: the coordinator loop may fail one solve (of 40 in one round), and no
+#: room's (the JAX package's own float64 loop fails the AHU's at t = 300 s,
+#: in the second round)
 COORD_MAX_FAILED = 1
 #: each room's final temperature (K) and mean actuated flow (m³/s) against
 #: the same loop in f64 on the CPU (plain LDLᵀ). Set before any card run at
@@ -546,12 +595,14 @@ COORD_T_TOL_K, COORD_FLOW_TOL = 0.01, 1e-5
 #: examples/admm_4rooms_coordinator.py's capacity gate on the peak total
 #: actuated flow
 COORD_PEAK_FLOW = 0.075 * 1.10 + 1e-9
-#: the exchange loop: every solve succeeds; 12 ADMM iterations per step on
-#: every agent; the example's balance gate |supplier − total room flow| at
+#: the exchange loop: every solve succeeds; 6 ADMM iterations per step on
+#: every agent (the example's last 6 of 12 cut when the ML phases came,
+#: for the script's time limit: the f64 CPU loop then balances within
+#: 1.5e-9 m³/s); the example's balance gate |supplier − total room flow| at
 #: the last step; each room's final temperature within 0.01 K of f64 on the
 #: CPU (the JAX package's own f32/f64 gap is at most 7e-5 K) and the
 #: supplier's flow within 1e-4 m³/s of it
-EXCHANGE_ITERATIONS = 12
+EXCHANGE_ITERATIONS = 6
 EXCHANGE_BALANCE_TOL = 0.02
 EXCHANGE_T_TOL_K, EXCHANGE_SUPPLY_TOL = 0.01, 1e-4
 
@@ -568,9 +619,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FLEET_DIR = os.path.join(HERE, "deploy", "fleet")
 FLEET_OUT = os.path.join(HERE, "fleet_out")
 FLEET_DTYPE = "float64"
-FLEET_UNTIL = 20.0
+FLEET_UNTIL = 15.0
 FLEET_MIN_ROUNDS = 2
 FLEET_AGENTS = ("Coordinator", "CooledRoom", "Simulation", "Cooler")
+
+#: module_ml_mpc (examples/ml_mpc_one_room.py): the example's 20 steps,
+#: its epochs and gates; every plant temperature within ML_MPC_T_TOL_K of
+#: the f64 CPU loop with the same surrogate; the card's validation MSE
+#: within ML_VAL_MSE_RTOL of the CPU's
+ML_DTYPE = "float64"
+ML_MPC_UNTIL = 6000.0
+ML_MPC_N = 10
+ML_EPOCHS = 300
+ML_MPC_T_TOL_K = 1e-4
+ML_MPC_MAX_FAILED = 2
+ML_MPC_TAIL_MARGIN_K = 0.3
+ML_VAL_MSE_RTOL = 0.01
+#: module_ml_admm (examples/three_zone_datadriven_admm.py): one control
+#: step; the zones' first moves (m³/s) and the coupling gap against the
+#: f64 CPU step
+ML_ADMM_UNTIL = 300.0
+ML_ADMM_ITERATIONS = 10
+ML_ADMM_MOVE_TOL = 1e-6
+ML_ADMM_GAP_TOL = 1e-6
+ZONES = ("Zone_1", "Zone_2", "Zone_3")
+ZONE_SIMULATORS = tuple((f"Simulation_{i}", "simulator")
+                        for i in range(1, 4))
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -992,7 +1067,7 @@ def phase_profile(torch, run, warm_ms, name="profile"):
     n_dev = 0
     for e in prof.profiler.kineto_results.events():
         event_name = e.name()
-        ranged = event_name.startswith(("ipm.", "admm."))
+        ranged = event_name.startswith(("ipm.", "admm.", "ml."))
         kind = e.device_type()
         if kind == cuda and not ranged:
             table = by_name
@@ -2362,12 +2437,14 @@ def reference_specs():
                         ("CooledRoom", "admm"), ("Simulation", "simulator"),
                         (("Cooler", "admm"),), ADMM_UNTIL),
         "module_admm_coord": (
-            lambda: rc.admm_4rooms_coordinator_configs(solver=plain),
+            lambda: rc.admm_4rooms_coordinator_configs(
+                admm_iter_max=COORD_ADMM_ITER_MAX, solver=plain),
             (ROOMS[0], "admm"), SIMULATORS,
             tuple((aid, "admm") for aid in (*ROOMS[1:], "AHU")),
             COORD_UNTIL),
         "module_admm_exchange": (
-            lambda: rc.exchange_admm_4rooms_configs(solver=plain),
+            lambda: rc.exchange_admm_4rooms_configs(
+                max_iterations=EXCHANGE_ITERATIONS, solver=plain),
             (ROOMS[0], "admm"), SIMULATORS,
             tuple((aid, "admm") for aid in (*ROOMS[1:], "Supplier")),
             EXCHANGE_UNTIL),
@@ -2390,6 +2467,9 @@ def reference_run(name: str) -> dict:
     if name in ("fused_slice", "fused_linear"):
         return fused_reference(torch, "zone" if name == "fused_slice"
                                else "linear")
+
+    if name in ("module_ml_mpc", "module_ml_admm"):
+        return ml_reference(name)
 
     configs, mpc_at, sim_at, extra_at, until = reference_specs()[name]
     run = drive_mas(torch, configs(), "cpu", torch.float64, until, mpc_at,
@@ -2491,6 +2571,11 @@ class References:
             [sys.executable, __file__, flag, name], stdin=stdin,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=self.env, preexec_fn=pin)
+
+    def start_late(self, names) -> None:
+        """Start more module references now (at the lower priority)."""
+        self.procs.update({name: self._start("--cpu-reference", name,
+                                             nice=10) for name in names})
 
     def replay(self, name: str, starts) -> None:
         """Replay the card solves ``starts`` of phase ``name`` on the CPU
@@ -3230,7 +3315,8 @@ def check_four_room_launches(name, agents):
     QP's)."""
     for aid, a in agents.items():
         backend = a["module"].backend
-        solves = 6 if backend.uses_qp_fast_path else per_factor(backend)
+        solves = 6 if getattr(backend, "uses_qp_fast_path", False) \
+            else per_factor(backend)
         for k, row in enumerate(a["rows"]):
             check(row["kkt_path"] == "ldl"
                   and row["factor"] == row["iterations"]
@@ -3248,7 +3334,8 @@ def four_room_summary(agents) -> dict:
                   "iterations_per_solve": [r["iterations"]
                                            for r in a["rows"]],
                   "admm_iterations_per_step": a["iterations_per_step"],
-                  "qp_fast_path": a["module"].backend.uses_qp_fast_path,
+                  "qp_fast_path": getattr(a["module"].backend,
+                                          "uses_qp_fast_path", False),
                   "warm_start_resets": a["module"].backend.warm_start_resets,
                   "guard_levels": [r["guard_level"] for r in a["rows"]
                                    if "guard_level" in r]}
@@ -3259,7 +3346,7 @@ def phase_module_admm_coord(torch, dev, smi, ref):
     """examples/admm_4rooms_coordinator.py's ten agents through LocalMAS on
     the card in f64: the coordinator drives four CooledRoom participants
     (augmented NLPs, KKT 74) and the AHU (a zero-state QP with the shared
-    capacity constraint, KKT 32) through 15 ADMM iterations per round,
+    capacity constraint, KKT 32) through 8 ADMM iterations per round,
     held against the same loop in f64 on the CPU with the plain LDLᵀ."""
     from agentlib_mpc_torch import reference_configs as rc
 
@@ -3280,7 +3367,8 @@ def phase_module_admm_coord(torch, dev, smi, ref):
 
         coord.trigger_optimizations = first_trigger
 
-    run = drive_mas(torch, rc.admm_4rooms_coordinator_configs(), dev,
+    run = drive_mas(torch, rc.admm_4rooms_coordinator_configs(
+        admm_iter_max=COORD_ADMM_ITER_MAX), dev,
                     getattr(torch, COORD_DTYPE), COORD_UNTIL,
                     (ROOMS[0], "admm"), SIMULATORS, count_launches=True,
                     extra_at=[(aid, "admm") for aid in aids[1:]],
@@ -3374,14 +3462,15 @@ def phase_module_admm_coord(torch, dev, smi, ref):
 def phase_module_admm_exchange(torch, dev, smi, ref):
     """examples/exchange_admm_4rooms.py's nine agents through LocalMAS on
     the card in f32: four ExchangeRoom agents (augmented NLPs, KKT 74) and
-    the supplier (a QP, KKT 8) on one exchange alias, 12 ADMM iterations
+    the supplier (a QP, KKT 8) on one exchange alias, 6 ADMM iterations
     per step, held against the same loop in f64 on the CPU with the plain
     LDLᵀ."""
     from agentlib_mpc_torch import reference_configs as rc
 
     t_phase = time.perf_counter()
     aids = (*ROOMS, "Supplier")
-    run = drive_mas(torch, rc.exchange_admm_4rooms_configs(), dev,
+    run = drive_mas(torch, rc.exchange_admm_4rooms_configs(
+        max_iterations=EXCHANGE_ITERATIONS), dev,
                     getattr(torch, EXCHANGE_DTYPE), EXCHANGE_UNTIL,
                     (ROOMS[0], "admm"), SIMULATORS, count_launches=True,
                     extra_at=[(aid, "admm") for aid in aids[1:]])
@@ -3453,6 +3542,278 @@ def phase_module_admm_exchange(torch, dev, smi, ref):
         r["success"] for rows in ref["extra"].values() for r in rows),
           "module_admm_exchange: the f64 CPU reference failed a solve")
     profile_module_solve(torch, run, "module_admm_exchange_profile")
+    return run["totals"]
+
+
+# -- the data-driven examples -------------------------------------------------
+
+def ml_val_mse(doc, data) -> float:
+    """Validation MSE (raw units) of a serialized surrogate on its
+    validation split, evaluated on the host in f64."""
+    import torch
+
+    from agentlib_mpc_torch.ml import load_serialized_model, make_predictor
+
+    pred = make_predictor(load_serialized_model(doc))
+    X = torch.as_tensor(np.array(data.validation_inputs, dtype=float))
+    with torch.no_grad():
+        out = pred.apply_batch(pred.params, X).numpy()
+    y = np.asarray(data.validation_outputs, dtype=float)
+    return float(np.mean((out - y) ** 2))
+
+
+def ml_weight_diff(doc_a, doc_b) -> float:
+    """Largest absolute difference of two ANN documents' weights and
+    biases."""
+    from agentlib_mpc_torch.ml import load_serialized_model
+
+    a, b = (load_serialized_model(d) for d in (doc_a, doc_b))
+    return max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+               for x, y in zip(a.weights + a.biases, b.weights + b.biases))
+
+
+def ml_train(torch, dev, which: str):
+    """The example's surrogates trained on ``dev`` in f64: ``"room"``
+    (examples/ml_mpc_one_room.py) or ``"zones"`` (the three zones of
+    examples/three_zone_datadriven_admm.py, seeds 0, 1, 2): per surrogate
+    its JSON, its validation MSE and its training seconds."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    dtype = getattr(torch, ML_DTYPE)
+    jobs = ([lambda: rc.train_room_surrogate(
+        rc.ml_room_training_data(), epochs=ML_EPOCHS, device=dev,
+        dtype=dtype, return_data=True)] if which == "room" else
+        [lambda i=i: rc.train_zone_surrogate(
+            rc.ZONES_LOADS[i], epochs=ML_EPOCHS, seed=i, device=dev,
+            dtype=dtype, return_data=True) for i in range(rc.ZONES_N)])
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        doc, data = job()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        out.append({"doc": doc.to_json(), "val_mse": ml_val_mse(doc, data),
+                    "train_s": time.perf_counter() - t0})
+    return out
+
+
+def ml_mpc_loop(torch, doc, dev, count_launches: bool) -> dict:
+    """examples/ml_mpc_one_room.py's closed loop on ``jax_ml`` with the
+    surrogate ``doc`` (a JSON string) on ``dev`` in f64 (on the CPU with
+    the plain LDLᵀ): per solve the plant temperature after it, the
+    control, success, iterations, ms and (on the card) launches."""
+    from agentlib_mpc_torch import reference_configs as rc
+    from agentlib_mpc_torch.backends.backend import (
+        VariableReference,
+        create_backend,
+    )
+    from agentlib_mpc_torch.ops import kkt
+
+    on_cpu = torch.device(dev).type == "cpu"
+    solver = {"kkt_method": "ldl"} if on_cpu else {}
+    t0 = time.perf_counter()
+    backend = create_backend(rc.ml_mpc_backend_config(doc, solver),
+                             device=dev, dtype=getattr(torch, ML_DTYPE))
+    backend.setup_optimization(
+        VariableReference(states=["T"], controls=["Q"], inputs=["T_upper"],
+                          parameters=["s_T", "r_Q"]),
+        time_step=rc.ML_DT, prediction_horizon=ML_MPC_N)
+    build_s = time.perf_counter() - t0
+    if count_launches:
+        torch.cuda.synchronize()
+        kkt.reset_launch_counts()
+    T, rows = 297.5, []
+    t0 = time.perf_counter()
+    for k in range(int(ML_MPC_UNTIL // rc.ML_DT)):
+        before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+        res = backend.solve(k * rc.ML_DT, {"T": T})
+        stats = res["stats"]
+        T = rc.ml_room_plant_step(T, res["u0"]["Q"])
+        rows.append({"T": T, "Q": res["u0"]["Q"],
+                     "success": stats["success"],
+                     "iterations": stats["iterations"],
+                     "ms": stats["solve_wall_time"] * 1e3,
+                     "kkt_path": stats["kkt_path"],
+                     "factor": kkt.ldl_factor.launches - before[0],
+                     "solve": kkt.ldl_solve.launches - before[1]})
+    return {"backend": backend, "rows": rows, "build_s": build_s,
+            "wall_s": time.perf_counter() - t0,
+            "totals": launch_totals(kkt) if count_launches else None}
+
+
+def ml_admm_run(torch, docs, dev, count_launches: bool) -> dict:
+    """The three-zone example's seven agents with the surrogates ``docs``
+    through LocalMAS for one control step on ``dev`` in f64 (on the CPU
+    with the plain LDLᵀ), and the step's outcome."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    solver = ({"kkt_method": "ldl"} if torch.device(dev).type == "cpu"
+              else None)
+    run = drive_mas(torch, rc.three_zone_datadriven_configs(
+        docs, solver=solver), dev, getattr(torch, ML_DTYPE), ML_ADMM_UNTIL,
+        (ZONES[0], "admm"), ZONE_SIMULATORS, count_launches=count_launches,
+        extra_at=[(aid, "admm") for aid in (*ZONES[1:], "AHU")])
+    run["agents"] = four_room_agents(run, (*ZONES, "AHU"))
+    run["outcome"] = ml_admm_outcome(run["agents"])
+    return run
+
+
+def ml_admm_outcome(agents) -> dict:
+    """One three-zone step as plain data: each agent's ADMM iterations and
+    solves, and at the last ADMM iteration each zone's first move and its
+    coupling gap to the AHU's outlet (largest over the horizon)."""
+    ahu = agents["AHU"]["module"]._iter_rows[-1]["couplings"]
+    moves, gaps = [], []
+    for i, aid in enumerate(ZONES, 1):
+        zone = np.asarray(agents[aid]["module"]._iter_rows[-1]["couplings"]
+                          ["mDot"], dtype=float)
+        moves.append(float(zone[0]))
+        gaps.append(float(np.abs(zone - np.asarray(
+            ahu[f"mDot_out_{i}"], dtype=float)).max()))
+    return {"admm_iterations": {aid: a["iterations_per_step"]
+                                for aid, a in agents.items()},
+            "solves": {aid: [{"success": bool(r["success"]),
+                              "iterations": int(r["iterations"])}
+                             for r in a["rows"]]
+                       for aid, a in agents.items()},
+            "first_moves": moves, "gaps": gaps}
+
+
+def ml_reference(name: str) -> dict:
+    """The f64 CPU reference of one data-driven phase: the surrogates
+    trained on the CPU, then the loop (``module_ml_mpc``) or the step
+    (``module_ml_admm``) with them, as plain data."""
+    import torch
+
+    trained = ml_train(torch, "cpu", "room" if name == "module_ml_mpc"
+                       else "zones")
+    docs = [t["doc"] for t in trained]
+    if name == "module_ml_mpc":
+        run = ml_mpc_loop(torch, docs[0], "cpu", False)
+        return {"trained": trained, "rows": run["rows"],
+                "wall_s": run["wall_s"]}
+    run = ml_admm_run(torch, docs, "cpu", False)
+    return {"trained": trained, "outcome": run["outcome"],
+            "wall_s": run["wall_s"]}
+
+
+def check_training(name, card, cpu) -> list:
+    """The card's validation MSEs within ML_VAL_MSE_RTOL of the CPU's; per
+    surrogate the MSEs, the largest weight difference and the seconds."""
+    rows = []
+    for k, (c, r) in enumerate(zip(card, cpu)):
+        rows.append({"val_mse_card": c["val_mse"], "val_mse_cpu": r["val_mse"],
+                     "val_mse_rel_diff": abs(c["val_mse"] - r["val_mse"])
+                     / r["val_mse"],
+                     "max_weight_abs_diff": ml_weight_diff(c["doc"],
+                                                           r["doc"]),
+                     "train_seconds_card": c["train_s"],
+                     "train_seconds_cpu": r["train_s"]})
+        check(rows[-1]["val_mse_rel_diff"] <= ML_VAL_MSE_RTOL,
+              f"{name} surrogate {k}: validation MSE {c['val_mse']} on the "
+              f"card, {r['val_mse']} on the CPU")
+    return rows
+
+
+def phase_module_ml_mpc(torch, dev, smi, ref):
+    """examples/ml_mpc_one_room.py through the port on the card in f64:
+    the surrogate trained on the card against the CPU's training, then
+    the example's loop with the CPU-trained surrogate against the same
+    loop on the CPU."""
+    from agentlib_mpc_torch import reference_configs as rc
+
+    t_phase = time.perf_counter()
+    training = check_training("module_ml_mpc", ml_train(torch, dev, "room"),
+                              ref["trained"])
+    run = ml_mpc_loop(torch, ref["trained"][0]["doc"], dev, True)
+    rows, backend = run["rows"], run["backend"]
+    temps = [r["T"] for r in rows]
+    t_diff = [abs(a - b["T"]) for a, b in zip(temps, ref["rows"])]
+    tail = float(np.mean(temps[-5:]))
+    failed = [k for k, r in enumerate(rows) if not r["success"]]
+    ms = [r["ms"] for r in rows]
+    size = backend.ocp.n_w + backend.ocp.n_g
+    emit({"phase": "module_ml_mpc", "dtype": ML_DTYPE,
+          "until_s": ML_MPC_UNTIL, "kkt_size": size, "training": training,
+          "solves": len(rows), "failed_solves": failed,
+          "iterations_per_solve": [r["iterations"] for r in rows],
+          "f64_cpu_iterations_per_solve": [r["iterations"]
+                                           for r in ref["rows"]],
+          "first_solve_ms": ms[0], "warm_solve_ms_median":
+              float(np.median(ms[1:])), "warm_solve_ms_max": max(ms[1:]),
+          "temperatures_K": temps, "tail_mean_K": tail,
+          "max_T_abs_diff_K": max(t_diff), "launches": run["totals"],
+          "tolerances": {"T_K": ML_MPC_T_TOL_K,
+                         "val_mse_rel": ML_VAL_MSE_RTOL},
+          "build_seconds": run["build_s"], "run_seconds": run["wall_s"],
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    check(tail < rc.ML_UB + ML_MPC_TAIL_MARGIN_K
+          and len(failed) <= ML_MPC_MAX_FAILED,
+          f"module_ml_mpc: the example's gates: tail {tail} K, failed "
+          f"solves {failed}")
+    check(max(t_diff) <= ML_MPC_T_TOL_K,
+          f"module_ml_mpc: temperatures {max(t_diff)} K from the f64 CPU "
+          f"loop")
+    for k, r in enumerate(rows):
+        check(r["kkt_path"] == "ldl" and r["factor"] == r["iterations"]
+              and r["solve"] == per_factor(backend) * r["iterations"],
+              f"module_ml_mpc solve {k}: {r['factor']} factor / "
+              f"{r['solve']} solve launches for {r['iterations']} "
+              f"iterations on {r['kkt_path']}")
+    check_shapes("module_ml_mpc", run["totals"], [(1, size)], ML_DTYPE)
+    now = len(rows) * rc.ML_DT
+    phase_profile(torch, lambda: backend.solve(now, {"T": temps[-1]}),
+                  float(np.median(ms[1:])), name="module_ml_mpc_profile")
+    return run["totals"]
+
+
+def phase_module_ml_admm(torch, dev, smi, ref):
+    """examples/three_zone_datadriven_admm.py's seven agents through
+    LocalMAS on the card in f64 for one control step, the zones' surrogates
+    trained on the card against the CPU's, the step run with the
+    CPU-trained ones against the same step on the CPU."""
+    t_phase = time.perf_counter()
+    training = check_training("module_ml_admm",
+                              ml_train(torch, dev, "zones"), ref["trained"])
+    run = ml_admm_run(torch, [t["doc"] for t in ref["trained"]], dev, True)
+    agents, outcome, cpu = run["agents"], run["outcome"], ref["outcome"]
+    sizes = {aid: a["module"].backend.ocp.n_w + a["module"].backend.ocp.n_g
+             for aid, a in agents.items()}
+    move_diff = [abs(a - b) for a, b in zip(outcome["first_moves"],
+                                            cpu["first_moves"])]
+    gap_diff = [abs(a - b) for a, b in zip(outcome["gaps"], cpu["gaps"])]
+    emit({"phase": "module_ml_admm", "dtype": ML_DTYPE,
+          "until_s": ML_ADMM_UNTIL, "kkt_size": sizes,
+          "training": training, "agents": four_room_summary(agents),
+          "outcome": outcome, "f64_cpu_outcome": cpu,
+          "first_move_abs_diff": move_diff, "gap_abs_diff": gap_diff,
+          "launches": run["totals"],
+          "tolerances": {"first_move": ML_ADMM_MOVE_TOL,
+                         "gap": ML_ADMM_GAP_TOL,
+                         "val_mse_rel": ML_VAL_MSE_RTOL},
+          "build_seconds": run["build_s"], "run_seconds": run["wall_s"],
+          "f64_cpu_run_seconds": ref["wall_s"],
+          "phase_seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    for aid, solves in (*outcome["solves"].items(),
+                        *cpu["solves"].items()):
+        check(all(r["success"] for r in solves),
+              f"module_ml_admm ({aid}): failed solves at "
+              f"{[k for k, r in enumerate(solves) if not r['success']]}")
+    check(all(its == [ML_ADMM_ITERATIONS]
+              for its in outcome["admm_iterations"].values())
+          and outcome["admm_iterations"] == cpu["admm_iterations"],
+          f"module_ml_admm: ADMM iterations {outcome['admm_iterations']}, "
+          f"the f64 CPU step {cpu['admm_iterations']}")
+    check(max(move_diff) <= ML_ADMM_MOVE_TOL
+          and max(gap_diff) <= ML_ADMM_GAP_TOL,
+          f"module_ml_admm: first moves {move_diff} and gaps {gap_diff} "
+          f"from the f64 CPU step")
+    check_four_room_launches("module_ml_admm", agents)
+    check_shapes("module_ml_admm", run["totals"],
+                 sorted({(1, m) for m in sizes.values()}), ML_DTYPE)
     return run["totals"]
 
 
@@ -3912,6 +4273,10 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
                                     smi, "linear", refs.get("fused_linear"))
     by_path["fused_fleet"] = timed("fused_fleet", phase_fused_fleet, torch,
                                    dev, smi)
+    # the data-driven phases' references (their trainings and loops)
+    # start once the fleet paths, the ones the CPU references slow most,
+    # are done
+    refs.start_late(["module_ml_mpc", "module_ml_admm"])
     by_path["module_one_room"] = timed(
         "module_one_room", phase_module_one_room, torch, dev, smi,
         refs.get("module_one_room"))
@@ -3939,6 +4304,12 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
     by_path["module_admm_exchange"] = timed(
         "module_admm_exchange", phase_module_admm_exchange, torch, dev, smi,
         refs.get("module_admm_exchange"))
+    by_path["module_ml_mpc"] = timed(
+        "module_ml_mpc", phase_module_ml_mpc, torch, dev, smi,
+        refs.get("module_ml_mpc"))
+    by_path["module_ml_admm"] = timed(
+        "module_ml_admm", phase_module_ml_admm, torch, dev, smi,
+        refs.get("module_ml_admm"))
     fleet_cores = sorted(set(cores["card_process"])
                          | set(cores["cpu_subprocesses"]))
     by_path["module_fleet_mqtt"] = timed(

@@ -44,8 +44,18 @@ card's factor in the port), from ``agentlib_mpc_torch/reference_configs.py``
   example's four loops (both packages, both types; also in each ``loop``
   line as ``mhe_iterations``).
 
+- ``ml_loop`` (``--only ml``): the two data-driven examples, per package
+  and type: ``ml_mpc`` (examples/ml_mpc_one_room.py on ``jax_ml``,
+  6 000 s) and ``ml_admm`` (examples/three_zone_datadriven_admm.py's seven
+  agents for one control step of 300 s, 10 ADMM iterations). Every
+  surrogate is trained once, by the port's trainer on the CPU in float64
+  at the examples' 300 epochs, and both packages load the same JSON: the
+  failed solves, the iterations per solve, and the outcome (the plant
+  temperatures; the zones' first moves).
+
 ``--only fixed_3900`` runs that program alone (a few minutes); ``--only
-mhe`` the MHE example's four loops and the ``mhe_qp_iterations`` line.
+mhe`` the MHE example's four loops and the ``mhe_qp_iterations`` line;
+``--only ml`` the ``ml_loop`` lines (about 3 minutes on a 4-core CPU).
 
 With ``--out`` the lines are also written to that file. Takes about 15
 minutes on a 4-core CPU; the loops run in parallel subprocesses.
@@ -398,9 +408,138 @@ def fixed_3900(fixture: str | None, starts: int = 80):
     return out
 
 
+def train_ml_surrogates(directory: str) -> dict:
+    """The examples' surrogates, trained once by the port's trainer on the
+    CPU in float64 (300 epochs), as JSON files in ``directory``."""
+    import torch
+
+    from agentlib_mpc_torch import reference_configs as rc
+
+    docs = {"room": rc.train_room_surrogate(
+        rc.ml_room_training_data(), device="cpu", dtype=torch.float64)}
+    for i in range(rc.ZONES_N):
+        docs[f"zone{i}"] = rc.train_zone_surrogate(
+            rc.ZONES_LOADS[i], seed=i, device="cpu", dtype=torch.float64)
+    paths = {}
+    for key, doc in docs.items():
+        paths[key] = os.path.join(directory, f"{key}.json")
+        doc.save(paths[key])
+    return paths
+
+
+def ml_loop(pkg: str, dtype: str, example: str, directory: str) -> dict:
+    """One data-driven example in one package and type, with the
+    surrogates of :func:`train_ml_surrogates`."""
+    import numpy as np
+
+    from agentlib_mpc_torch import reference_configs as rc
+
+    def doc(key):
+        with open(os.path.join(directory, f"{key}.json")) as fh:
+            return fh.read()
+
+    solver = {"max_iter": 60, "kkt_method": "ldl"}
+    if pkg == "jax":
+        setup_jax(dtype == "f64")
+        from agentlib_mpc_tpu.backends.backend import (
+            VariableReference,
+            create_backend,
+        )
+        from agentlib_mpc_tpu.ml import load_serialized_model
+        from agentlib_mpc_tpu.runtime.mas import LocalMAS
+        from examples import ml_mpc_one_room as ex_mpc
+        from examples import three_zone_datadriven_admm as ex_admm
+
+        kw = {}
+    else:
+        import torch
+
+        from agentlib_mpc_torch.backends.backend import (
+            VariableReference,
+            create_backend,
+        )
+        from agentlib_mpc_torch.runtime.mas import LocalMAS
+
+        kw = {"device": "cpu", "dtype": getattr(torch, {
+            "f32": "float32", "f64": "float64"}[dtype])}
+    out = {"line": "ml_loop", "example": example, "package": pkg,
+           "dtype": dtype}
+    if example == "ml_mpc":
+        model = ({"class": ex_mpc.SurrogateRoom,
+                  "ml_model_sources": [load_serialized_model(doc("room"))]}
+                 if pkg == "jax" else
+                 rc.ml_mpc_backend_config(doc("room"))["model"])
+        backend = create_backend({"type": "jax_ml", "model": model,
+                                  "solver": solver}, **kw)
+        backend.setup_optimization(
+            VariableReference(states=["T"], controls=["Q"],
+                              inputs=["T_upper"],
+                              parameters=["s_T", "r_Q"]),
+            time_step=rc.ML_DT, prediction_horizon=10)
+        T, temps, stats = 297.5, [], []
+        for k in range(20):
+            res = backend.solve(k * rc.ML_DT, {"T": T})
+            T = rc.ml_room_plant_step(T, res["u0"]["Q"])
+            temps.append(T)
+            stats.append(res["stats"])
+        out.update(failed_at=[s["time"] for s in stats if not s["success"]],
+                   iterations=[s["iterations"] for s in stats],
+                   temperatures_K=temps)
+        return out
+    docs = [doc(f"zone{i}") for i in range(rc.ZONES_N)]
+    if pkg == "jax":
+        configs = ex_admm.agent_configs(
+            [load_serialized_model(d) for d in docs])
+    else:
+        configs = rc.three_zone_datadriven_configs(docs)
+    for agent in configs:
+        for module in agent["modules"]:
+            backend = module.get("optimization_backend")
+            if backend is not None:
+                backend["solver"] = {**backend["solver"], **solver}
+                if agent["id"] == "AHU":
+                    backend["solver"]["qp_fast_path"] = "on"
+    mas = LocalMAS(configs, env={"rt": False}, **kw)
+    mas.run(until=rc.ML_DT)
+    modules = {aid: mas.agents[aid].get_module("admm")
+               for aid in ("Zone_1", "Zone_2", "Zone_3", "AHU")}
+    out.update(
+        failed={aid: [k for k, s in enumerate(m.backend.stats_history)
+                      if not s["success"]] for aid, m in modules.items()},
+        iterations={aid: [s["iterations"] for s in m.backend.stats_history]
+                    for aid, m in modules.items()},
+        admm_iterations={aid: len(m._iter_rows)
+                         for aid, m in modules.items()},
+        first_moves=[float(np.asarray(
+            modules[f"Zone_{i}"]._iter_rows[-1]["couplings"]["mDot"])[0])
+            for i in (1, 2, 3)])
+    return out
+
+
+def ml_iterations(lines) -> dict:
+    """Failed solves and iterations per solve of the ``ml_loop`` lines,
+    by example, package and type, on a line of their own."""
+    out = {"line": "ml_iterations"}
+    for line in lines:
+        if line.get("line") != "ml_loop":
+            continue
+        its = line["iterations"]
+        its = its if isinstance(its, list) else [
+            n for aid in sorted(its) for n in its[aid]]
+        failed = line.get("failed_at", line.get("failed"))
+        n_failed = len(failed) if isinstance(failed, list) else sum(
+            len(v) for v in failed.values())
+        out[f"{line['example']}_{line['package']}_{line['dtype']}"] = {
+            "solves": len(its), "failed": n_failed,
+            "per_solve": sum(its) / len(its)}
+    return out
+
+
 def child(argv):
     kind = argv[0]
-    if kind == "loop":
+    if kind == "ml_loop":
+        out = ml_loop(argv[1], argv[2], argv[3], argv[4])
+    elif kind == "loop":
         out = run_loop(argv[1], argv[2], argv[3],
                        argv[4] if len(argv) > 4 else None)
     elif kind == "replay":
@@ -462,7 +601,7 @@ def main() -> int:
                         "inputs at t = 3 900 s there (JSON)")
     parser.add_argument("--starts", type=int, default=80,
                         help="perturbed starts of the fixed program")
-    parser.add_argument("--only", choices=("fixed_3900", "mhe"),
+    parser.add_argument("--only", choices=("fixed_3900", "mhe", "ml"),
                         help="run only that line, or only the MHE "
                         "example's loops")
     args = parser.parse_args()
@@ -491,6 +630,17 @@ def main() -> int:
     elif args.only == "mhe":
         lines += collect([spawn(job, env) for job in jobs
                           if job[3] == "mhe"])
+    elif args.only == "ml":
+        paths = train_ml_surrogates(tmp)
+        ml_jobs = [["ml_loop", pkg, dtype, example, tmp]
+                   for example in ("ml_mpc", "ml_admm")
+                   for pkg in ("jax", "torch") for dtype in ("f32", "f64")]
+        for start in range(0, len(ml_jobs), 4):
+            lines += collect([spawn(job, env)
+                              for job in ml_jobs[start:start + 4]])
+        lines.append(ml_iterations(lines))
+        for path in paths.values():
+            os.unlink(path)
     else:
         lines += collect([spawn(fixed, env)])
     lines += [wedge_counts(line) for line in lines

@@ -58,6 +58,8 @@ from agentlib_mpc_tpu.backends.backend import (
 )
 from agentlib_mpc_tpu.modules import admm as jadmm
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 #: one augmented solve from the same state, absolute
 SOLVE_TOL = 1e-8
@@ -471,5 +473,9 @@ def test_backend_types_resolve_to_the_port(type_key):
 
 @pytest.mark.parametrize("type_key", ["jax_admm_ml", "casadi_admm_ml"])
 def test_ml_admm_backends_still_raise(type_key):
-    with pytest.raises(NotImplementedError, match="3 \\(ML\\)"):
-        create_backend({"type": type_key}, device="cpu")
+    """The ML ADMM types raised until the ML slice; now they build the
+    port's ML ADMM backend, an ADMM participant on a NARX OCP."""
+    from agentlib_mpc_torch.backends.ml_backend import MLADMMBackend
+
+    backend = create_backend({"type": type_key}, device="cpu")
+    assert type(backend) is MLADMMBackend

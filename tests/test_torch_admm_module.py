@@ -42,6 +42,8 @@ from agentlib_mpc_torch.utils.convert import (
 )
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 #: the closed loop: three control steps
 UNTIL = 900.0
@@ -81,15 +83,9 @@ def test_configs_are_the_example():
 
 @pytest.fixture(scope="module")
 def loops():
-    # batch-1 solves on tiny tensors: one thread spares the pool overhead
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        port = LocalMAS(example_configs(), env={"rt": False}, device="cpu",
-                        dtype=F64)
-        port.run(until=UNTIL)
-    finally:
-        torch.set_num_threads(threads)
+    port = LocalMAS(example_configs(), env={"rt": False}, device="cpu",
+                    dtype=F64)
+    port.run(until=UNTIL)
     ref = JLocalMAS(example_configs(jax_side=True), env={"rt": False})
     ref.run(until=UNTIL)
     return {"port": port, "jax": ref}

@@ -45,6 +45,8 @@ from agentlib_mpc_torch.utils.convert import (
     to_numpy,
 )
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 #: float64, same arithmetic; only summation order may differ
 TOL = 1e-12
@@ -461,7 +463,8 @@ def test_load_model_errors_and_injection(tmp_path):
         tbackend.load_model({"class": "NoSuchModel"})
     with pytest.raises(KeyError, match="class"):
         tbackend.load_model({})
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # an ML config loads through the ML loader, which wants an MLModel
+    with pytest.raises(TypeError, match="MLModel"):
         tbackend.load_model_for_backend({"class": "CooledRoom",
                                          "ml_model_sources": ["m.json"]})
     model = tzoo.Cooler()

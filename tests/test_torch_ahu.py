@@ -42,6 +42,8 @@ from test_torch_admm_module import (  # noqa: F401 - a fixture
     jax_certifier,
 )
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 SOLVER = {"kkt_method": "ldl"}
 #: one augmented AHU solve from the same state, absolute (m³/s)

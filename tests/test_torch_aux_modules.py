@@ -17,6 +17,8 @@ import torch
 import agentlib_mpc_torch.modules  # noqa: F401 - registers module types
 import agentlib_mpc_tpu.modules  # noqa: F401 - registers module types
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PACKAGES = ("agentlib_mpc_tpu", "agentlib_mpc_torch")
 RTOL = 1e-8
 

@@ -38,6 +38,8 @@ from agentlib_mpc_torch.ops.solver import NLPFunctions
 from agentlib_mpc_torch.ops.stagewise import stage_of_index
 from agentlib_mpc_torch.ops.transcription import transcribe
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 _N = 3  # primal dimension of the handcrafted corpus
 

@@ -41,6 +41,8 @@ from agentlib_mpc_tpu.runtime import container as jcontainer
 from agentlib_mpc_tpu.utils import analysis as janalysis
 from test_mqtt import _FakeBrokerHub, _install_fake_paho
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 FLEET = REPO / "deploy" / "fleet"
 AGENT = {

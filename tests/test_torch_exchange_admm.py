@@ -25,6 +25,8 @@ from agentlib_mpc_torch import reference_configs as rc
 from agentlib_mpc_torch.runtime.mas import LocalMAS
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 SOLVER = {"kkt_method": "ldl"}
 #: the exchange loop, per solve and per plant step, absolute (m³/s, K)
@@ -49,14 +51,9 @@ def exchange_configs(jax_side=False):
 
 @pytest.fixture(scope="module")
 def exchange_loops():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        port = LocalMAS(exchange_configs(), env={"rt": False}, device="cpu",
-                        dtype=F64)
-        port.run(until=EXCHANGE_UNTIL)
-    finally:
-        torch.set_num_threads(threads)
+    port = LocalMAS(exchange_configs(), env={"rt": False}, device="cpu",
+                    dtype=F64)
+    port.run(until=EXCHANGE_UNTIL)
     ref = JLocalMAS(exchange_configs(jax_side=True), env={"rt": False})
     ref.run(until=EXCHANGE_UNTIL)
     return {"port": port, "jax": ref}

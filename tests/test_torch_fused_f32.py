@@ -32,6 +32,8 @@ import torch
 
 from test_torch_fused_fleets import build
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 N_ZONES = 8
 ROUNDS = 2
 ZBAR_TOL_W, U_MEDIAN_TOL_W = 25.0, 2.0

@@ -32,6 +32,8 @@ from agentlib_mpc_torch.parallel import admm_step
 from agentlib_mpc_torch.parallel import fused_admm as T
 from test_torch_fused_admm import assert_round_equal, run_both
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 N_ZONES = 4
 

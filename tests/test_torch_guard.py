@@ -10,6 +10,8 @@ import importlib
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PACKAGES = ("agentlib_mpc_tpu", "agentlib_mpc_torch")
 BOUNDS = {"mDot": (0.0, 0.05)}
 

@@ -13,6 +13,8 @@ import torch
 
 from agentlib_mpc_torch.utils.device import resolve_device
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "agentlib_mpc_tpu", "bench")
 

@@ -22,6 +22,8 @@ from agentlib_mpc_tpu.ops import integrators as ji
 from agentlib_mpc_torch.models import zoo
 from agentlib_mpc_torch.ops import integrators as ti
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 RTOL = 1e-12
 ZOO = ["ZoneWithSupply", "OneRoom", "LinearRCZone", "CooledRoom"]

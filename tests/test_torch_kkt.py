@@ -20,6 +20,8 @@ from agentlib_mpc_tpu.ops import kkt as jkkt
 from agentlib_mpc_torch.ops import kkt
 from agentlib_mpc_torch.ops import solver as tsolver
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _quasi_definite_batch(B, n, m, seed=0):
     """Random interior-point-shaped KKT matrices [[W, Jgᵀ], [Jg, -δI]]

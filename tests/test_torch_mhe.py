@@ -46,6 +46,8 @@ from agentlib_mpc_tpu.backends.mhe_backend import (
 )
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 #: the closed loop: five MHE and MPC solves (every 120 s) and 9 plant steps
 UNTIL = 480.0

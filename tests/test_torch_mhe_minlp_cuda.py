@@ -17,6 +17,8 @@ from agentlib_mpc_torch import reference_configs as rc
 from agentlib_mpc_torch.ops import kkt
 from agentlib_mpc_torch.runtime.mas import LocalMAS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 
 

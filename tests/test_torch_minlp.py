@@ -52,6 +52,8 @@ from agentlib_mpc_torch.utils.convert import warm_state_from_jax
 from agentlib_mpc_tpu.ops import cia as jcia
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 #: the closed loop: length (s), three controller steps at 300 s
 UNTIL = 600.0

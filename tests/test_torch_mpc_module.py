@@ -31,7 +31,6 @@ package's sampled LQ probe on proving it.
 """
 
 import copy
-import re
 
 import numpy as np
 import pytest
@@ -47,6 +46,8 @@ from agentlib_mpc_torch.runtime.mas import LocalMAS
 from agentlib_mpc_torch.runtime.module import DEFERRED_MODULE_TYPES
 from agentlib_mpc_torch.utils.convert import warm_state_from_jax
 from agentlib_mpc_tpu.runtime.mas import LocalMAS as JLocalMAS
+
+from _torch_threads import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 RTOL = 1e-8
@@ -340,19 +341,41 @@ def test_warm_state_from_jax_gives_the_same_next_solve(one_room):
         close(out["traj"][key], ref["traj"][key], f"traj {key}")
 
 
-@pytest.mark.parametrize("type_name", sorted(DEFERRED_MODULE_TYPES))
+#: the types the ML slice brought, deferred until it (ROADMAP item 3)
+ML_MODULE_TYPES = ("ann_trainer", "gpr_trainer", "keras_ann_trainer",
+                   "linreg_trainer", "ml_simulator")
+ML_BACKEND_TYPES = ("casadi_admm_ml", "casadi_ml", "casadi_nn",
+                    "jax_admm_ml", "jax_ml")
+
+
+@pytest.mark.parametrize("type_name", ML_MODULE_TYPES)
 def test_deferred_module_types_name_their_item(type_name):
-    cfg = {"id": "a", "modules": [{"module_id": "m", "type": type_name}]}
-    with pytest.raises(NotImplementedError, match=re.escape(
-            f"item {DEFERRED_MODULE_TYPES[type_name]}")):
-        LocalMAS([cfg], device="cpu")
+    """No module type is deferred any more: the ML slice's resolve to the
+    port's modules, as the JAX package's names do."""
+    import agentlib_mpc_tpu.modules  # noqa: F401 - registers the types
+    import agentlib_mpc_torch.modules  # noqa: F401 - registers the types
+    from agentlib_mpc_tpu.runtime.module import MODULE_TYPES as JAX_TYPES
+    from agentlib_mpc_torch.runtime.module import MODULE_TYPES
+
+    assert not DEFERRED_MODULE_TYPES
+    assert MODULE_TYPES[type_name].__name__ == JAX_TYPES[type_name].__name__
+    assert MODULE_TYPES[type_name].__module__.startswith(
+        "agentlib_mpc_torch.")
 
 
-@pytest.mark.parametrize("type_name", sorted(DEFERRED_BACKEND_TYPES))
+@pytest.mark.parametrize("type_name", ML_BACKEND_TYPES)
 def test_deferred_backend_types_name_their_item(type_name):
-    with pytest.raises(NotImplementedError, match=re.escape(
-            f"item {DEFERRED_BACKEND_TYPES[type_name]}")):
-        create_backend({"type": type_name}, device="cpu")
+    """No backend type is deferred any more: a config naming an ML type
+    builds the port's ML backend."""
+    from agentlib_mpc_torch.backends.ml_backend import (
+        MLADMMBackend,
+        MLBackend,
+    )
+
+    assert not DEFERRED_BACKEND_TYPES
+    backend = create_backend({"type": type_name}, device="cpu")
+    assert type(backend) is (MLADMMBackend if "admm" in type_name
+                             else MLBackend)
 
 
 def test_unknown_types_stay_key_errors():

@@ -43,6 +43,12 @@ from test_mqtt_native import (
     _read_frame,
 )
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
+#: every socket wait of these tests is bounded: a lost peer fails its test
+#: instead of holding the worker
+SOCKET_TIMEOUT = 10.0
+
 
 def _wait_for(predicate, timeout=20.0, interval=0.01):
     deadline = time.time() + timeout
@@ -224,6 +230,7 @@ def test_credentials_are_refused_loudly(caplog):
     srv = socket.socket()
     srv.bind(("127.0.0.1", 0))
     srv.listen(1)
+    srv.settimeout(SOCKET_TIMEOUT)
 
     def refuse():
         sess, _ = srv.accept()
@@ -293,7 +300,8 @@ def test_reader_redials_with_jitter_on_a_fake_socket(monkeypatch):
 ], ids=["type0", "type15", "short-connect", "varint-overflow",
         "bad-proto-len", "bad-topic-len", "short-subscribe"])
 def test_malformed_first_frame_costs_only_its_session(broker, frame):
-    s = socket.create_connection((broker.host, broker.port))
+    s = socket.create_connection((broker.host, broker.port),
+                                 timeout=SOCKET_TIMEOUT)
     s.sendall(frame)
     s.close()
     assert _wait_for(lambda: broker.n_clients == 0)
@@ -331,6 +339,7 @@ def _client_frames(client_cls, payload):
     srv = socket.socket()
     srv.bind(("127.0.0.1", 0))
     srv.listen(1)
+    srv.settimeout(SOCKET_TIMEOUT)
     client = client_cls(client_id="demo")
     frames = []
     try:
@@ -339,6 +348,7 @@ def _client_frames(client_cls, payload):
             daemon=True)
         t.start()
         conn, _ = srv.accept()
+        conn.settimeout(SOCKET_TIMEOUT)
         frames.append(_read_frame(conn))
         conn.sendall(GOLDEN_CONNACK)
         t.join(timeout=5.0)
@@ -368,8 +378,10 @@ def test_client_packets_equal_the_jax_client_and_the_spec():
 
 
 def _broker_conversation(broker):
-    sub = socket.create_connection((broker.host, broker.port))
-    pub = socket.create_connection((broker.host, broker.port))
+    sub = socket.create_connection((broker.host, broker.port),
+                                   timeout=SOCKET_TIMEOUT)
+    pub = socket.create_connection((broker.host, broker.port),
+                                   timeout=SOCKET_TIMEOUT)
     try:
         sub.sendall(GOLDEN_CONNECT)
         out = [_read_frame(sub)]

@@ -25,6 +25,8 @@ from agentlib_mpc_torch.models.variables import (
 )
 from agentlib_mpc_torch.runtime.multiprocessing_mas import MultiProcessingMAS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 class MPPlant(Model):
     inputs = [control_input("Q", 0.0, lb=0.0, ub=500.0)]

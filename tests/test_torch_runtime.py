@@ -9,6 +9,8 @@ import importlib
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PACKAGES = ("agentlib_mpc_tpu", "agentlib_mpc_torch")
 
 
@@ -220,4 +222,3 @@ def test_runtime_event_logs_match(scenario):
     ref, port = (SCENARIOS[scenario](pkg) for pkg in PACKAGES)
     assert port == ref
     assert port, "the scenario recorded nothing"
-

@@ -18,6 +18,8 @@ import torch
 from agentlib_mpc_tpu.ops import solver as jsolver
 from agentlib_mpc_torch.ops import solver as tsolver
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 BIG = 1e6
 RTOL = 1e-7

@@ -36,6 +36,8 @@ from agentlib_mpc_torch.utils.convert import (
     stage_jacobian_plan_from_fields,
 )
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 RTOL = 1e-12
 

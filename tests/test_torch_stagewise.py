@@ -27,6 +27,8 @@ from agentlib_mpc_torch.ops import solver as tsolver
 from agentlib_mpc_torch.ops import stagewise as ts
 from agentlib_mpc_torch.utils.convert import stage_partition_from_fields
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 RTOL64 = 1e-10
 RTOL32 = 1e-4

@@ -6,6 +6,8 @@ import importlib
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PACKAGES = ("agentlib_mpc_tpu", "agentlib_mpc_torch")
 
 

@@ -22,6 +22,8 @@ from agentlib_mpc_torch.models import zoo
 from agentlib_mpc_torch.parallel.admm_step import zone_ocp
 from agentlib_mpc_torch.utils.convert import ocp_params_from_numpy, to_numpy
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F64 = torch.float64
 
 

@@ -26,6 +26,12 @@ from agentlib_mpc_tpu.runtime import wire as jwire
 from agentlib_mpc_tpu.runtime.variables import AgentVariable as JVar
 from agentlib_mpc_tpu.runtime.variables import Source as JSource
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
+#: every socket wait of these tests is bounded: a lost peer fails its test
+#: instead of holding the worker
+SOCKET_TIMEOUT = 10.0
+
 RNG = np.random.default_rng(11)
 TRAJ = RNG.normal(size=(3, 4))
 
@@ -95,6 +101,8 @@ def test_round_trips_and_cross_package_decoding():
 
 def test_length_prefixed_frames_over_a_socket_pair():
     a, b = socket.socketpair()
+    a.settimeout(SOCKET_TIMEOUT)
+    b.settimeout(SOCKET_TIMEOUT)
     try:
         big = b"x" * (1 << 20)     # beyond one send buffer
         framed = pwire.FramedSocket(a)
@@ -118,7 +126,8 @@ def test_relay_broadcasts_to_others_not_sender():
     broker = MultiProcessingBroker()
     conns = []
     try:
-        conns = [socket.create_connection((broker.host, broker.port))
+        conns = [socket.create_connection((broker.host, broker.port),
+                                          timeout=SOCKET_TIMEOUT)
                  for _ in range(3)]
         deadline = time.time() + 5.0
         while len(broker._clients) < 3 and time.time() < deadline:
