@@ -18,7 +18,9 @@ mixed-integer MPC with its CIA and branch-and-bound schedules, the
 simulator, the PIDs and the actuation guard, over the JAX package's agent
 configs), data-driven MPC with learned surrogates (``ml/``, the NARX
 transcription, the ``jax_ml``/``jax_admm_ml`` backends, the ML simulator
-and trainers), the two hand-written Hopper kernels of ``ops/kkt.py`` (the
+and trainers), scenario-tree robust MPC on one device (``scenario/``: the
+tree KKT solve, scenario generation, ``ScenarioFleet``), the two
+hand-written Hopper kernels of ``ops/kkt.py`` (the
 pivot-free LDLᵀ factor and solve, ``csrc/*.cu``) and the host C++ of the
 CIA branch-and-bound (``csrc/cia.cpp``, built by ``native.py``).
 

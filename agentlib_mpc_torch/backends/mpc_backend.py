@@ -9,7 +9,8 @@ device: input assembly on the host (numpy, as in the JAX package), then
 parameters, bounds, the interior-point (or QP) solve, trajectory
 extraction and the shift on the device, and ``u0``, the trajectories and
 the stats row back to the host once per solve. The scenario-tree helpers
-wait for ROADMAP Queue 1 item 4.
+(:func:`scenario_engine`, :func:`robust_scenario_controls`) run a
+single-agent :class:`~agentlib_mpc_torch.scenario.fleet.ScenarioFleet`.
 """
 
 from __future__ import annotations
@@ -293,22 +294,63 @@ class JAXBackend(OptimizationBackend):
 # -- scenario-tree robust solve ----------------------------------------------
 
 
+_SCENARIO_ENGINES: dict = {}
+_SCENARIO_ENGINES_MAX = 8
+
+
 def scenario_engine(ocp, tree, solver_options: SolverOptions,
-                    fleet_options=None):
-    """One cached single-agent scenario engine per (OCP, tree, options)
-    structure: the backend-level entry to scenario-tree robust MPC, which
-    comes with the scenario-tree slice."""
-    raise NotImplementedError(
-        "scenario_engine needs the scenario-tree slice, which is not ported "
-        "yet (ROADMAP Queue 1 item 4)")
+                    fleet_options=None, device=None,
+                    dtype: torch.dtype = torch.float32):
+    """One cached single-agent scenario engine per (OCP, tree, options,
+    device, dtype): the backend-level entry to scenario-tree robust MPC. A
+    single agent with no consensus alias leaves exactly the
+    non-anticipativity coupling, so a backend evaluates S disturbance
+    branches in one batched round instead of S serial solves. Engines are
+    memoized (bounded, oldest out); the device and dtype in the key keep a
+    card engine and a CPU engine of one OCP apart. ``device`` None is the
+    card."""
+    from agentlib_mpc_torch.parallel.fused_admm import AgentGroup
+    from agentlib_mpc_torch.scenario import (
+        ScenarioFleet,
+        ScenarioFleetOptions,
+    )
+    from agentlib_mpc_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    fleet_options = fleet_options or ScenarioFleetOptions()
+    key = (id(ocp), tree, solver_options, fleet_options, dev, dtype)
+    hit = _SCENARIO_ENGINES.get(key)
+    if hit is not None:
+        return hit[0]
+    group = AgentGroup(name="scenario-backend", ocp=ocp, n_agents=1,
+                       solver_options=solver_options)
+    fleet = ScenarioFleet(group, tree, fleet_options, device=dev)
+    while len(_SCENARIO_ENGINES) >= _SCENARIO_ENGINES_MAX:
+        _SCENARIO_ENGINES.pop(next(iter(_SCENARIO_ENGINES)))
+    # pin the ocp so a recycled id() can never alias another structure
+    _SCENARIO_ENGINES[key] = (fleet, ocp)
+    return fleet
 
 
 def robust_scenario_controls(ocp, theta, tree,
                              solver_options: SolverOptions = SolverOptions(),
                              fleet_options=None, state=None):
-    """Solve one agent's scenario tree and return its robust controls
-    (the non-anticipativity projection's first-interval group mean);
-    comes with the scenario-tree slice."""
-    raise NotImplementedError(
-        "robust_scenario_controls needs the scenario-tree slice, which is "
-        "not ported yet (ROADMAP Queue 1 item 4)")
+    """Solve one agent's scenario tree and return the robust controls
+    ``(u0 (n_u,) numpy, state, stats)``: ``u0`` is the non-anticipativity
+    projection's first-interval group mean, identical across every branch
+    by construction (the scenario-tree analogue of the nominal backend's
+    ``u[0]``). ``theta`` is a scenario-stacked (S, ...) OCPParams batch
+    (:func:`agentlib_mpc_torch.scenario.generate.ensemble_thetas` builds
+    it); the engine runs on its device and in its dtype. Pass the returned
+    ``state`` back in for warm-started re-solves."""
+    from torch.utils._pytree import tree_map
+
+    fleet = scenario_engine(ocp, tree, solver_options, fleet_options,
+                            device=theta.d_traj.device,
+                            dtype=theta.d_traj.dtype)
+    theta_batch = tree_map(lambda leaf: leaf[None], theta)
+    if state is None:
+        state = fleet.init_state(theta_batch)
+    state, _trajs, stats = fleet.step(state, theta_batch)
+    u0 = fleet.actuated_u0(state)[0, 0].detach().cpu().numpy()
+    return u0, fleet.shift_state(state), stats

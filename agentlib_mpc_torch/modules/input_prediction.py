@@ -64,12 +64,39 @@ class InputPredictor(DataSource):
     def get_prediction_ensemble_at_time(
             self, t: float, n_scenarios: int, seed: int = 0,
             spread: "float | dict | None" = None) -> dict[str, tuple]:
-        """The batched forecast-ensemble hook of the scenario generator
-        (the JAX package's, seeded from its chaos harness), which comes
-        with the scenario-tree slice."""
-        raise NotImplementedError(
-            "forecast ensembles need the scenario-tree slice, which is not "
-            "ported yet (ROADMAP Queue 1 item 4)")
+        """column → (absolute times, (S, n) values): the batched
+        forecast-ensemble hook of the scenario generator.
+
+        Row 0 is the NOMINAL forecast (exactly
+        :meth:`get_prediction_at_time`); rows 1.. add seeded random-walk
+        perturbations from
+        :func:`agentlib_mpc_torch.resilience.chaos.disturbance_model`, the
+        JAX package's draws bit for bit. Equal ``(t, n_scenarios, seed,
+        spread)`` reproduce the same ensemble.
+
+        ``spread`` scales the per-step walk increment: a float applies one
+        absolute sigma to every column; a dict maps column name → sigma;
+        None defaults each column to 5% of its nominal window's
+        peak-to-peak range (a flat column gets 0)."""
+        from agentlib_mpc_torch.resilience.chaos import disturbance_model
+
+        nominal = self.get_prediction_at_time(t)
+        out = {}
+        for ci, (c, (grid, vals)) in enumerate(sorted(nominal.items())):
+            base = np.asarray(vals, dtype=float)
+            if isinstance(spread, dict):
+                sigma = float(spread.get(c, 0.0))
+            elif spread is not None:
+                sigma = float(spread)
+            else:
+                sigma = 0.05 * float(np.ptp(base)) if base.size else 0.0
+            draws = disturbance_model(
+                # one independent stream per column and forecast time
+                seed=seed + 1009 * ci + int(t), horizon=base.shape[0],
+                n_scenarios=int(n_scenarios), scale=sigma, kind="walk")
+            ens = base[None, :] + draws[:, :, 0]
+            out[c] = (list(grid), ens.tolist())
+        return out
 
     def process(self):
         while True:

@@ -34,7 +34,12 @@ cotangents (``banded_fgh_jac``) and ``jvp`` seeds
 (``banded_lagrangian_hessian``). Gathers and scatters run on index
 tensors of the plan.
 
-The scenario-tree variants (``tree_*``) wait for the scenario-tree slice.
+The scenario-tree variants (``tree_*``, the JAX package's lines 537-605)
+run a scenario batch through the same functions: every branch evaluates
+the same traced structure (branch data is theta), so the flat plan's seeds
+serve every branch and, batch-first, the scenario axis is the lane axis. A
+one-scenario batch takes the flat call with its theta row bound, as the
+JAX package calls its flat functions unwrapped.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import logging
 import numpy as np
 import torch
 from torch.func import jvp, vjp, vmap
+from torch.utils._pytree import tree_map
 
 from agentlib_mpc_torch.ops.stagewise import StagePartition, stage_of_index
 
@@ -60,6 +66,10 @@ __all__ = [
     "hessian_rows",
     "plan_from_certificate",
     "stacked_fgh",
+    "tree_assemble_kkt_banded",
+    "tree_banded_fgh_jac",
+    "tree_banded_lagrangian_hessian",
+    "tree_plan_from_certificate",
 ]
 
 logger = logging.getLogger(__name__)
@@ -559,3 +569,61 @@ def assemble_kkt_banded(plan: StageJacobianPlan, CH: torch.Tensor,
     # in exact arithmetic): symmetrise so the pivot-free quasi-definite
     # sweep sees an exactly symmetric block
     return 0.5 * (D + D.transpose(-1, -2)), E
+
+
+# --------------------------------------------------------------------------
+# tree-banded seeds: the scenario axis of a tree-structured OCP. One proved
+# flat certificate (one compressed seed set) serves the whole tree.
+# --------------------------------------------------------------------------
+
+def _theta_row(theta_batch, s: int):
+    return tree_map(lambda leaf: leaf[s], theta_batch)
+
+
+def tree_banded_fgh_jac(plan: StageJacobianPlan, fgh, w_batch: torch.Tensor,
+                        theta_batch):
+    """Values and banded Jacobian rows for a scenario batch: ``fgh(w,
+    theta)`` is the branch-shared stacked residual, ``w_batch`` (S, n_w)
+    and the scenario-stacked ``theta_batch`` the per-branch data. Returns
+    :func:`banded_fgh_jac`'s tuple with a leading S axis."""
+    if w_batch.shape[0] == 1:
+        th0 = _theta_row(theta_batch, 0)
+        return banded_fgh_jac(plan, lambda w: fgh(w, th0), w_batch)
+    return banded_fgh_jac(plan, fgh, w_batch, theta_batch)
+
+
+def tree_banded_lagrangian_hessian(plan: StageJacobianPlan, grad_fn,
+                                   w_batch: torch.Tensor, theta_batch
+                                   ) -> torch.Tensor:
+    """Compressed Lagrangian-Hessian columns per scenario branch:
+    ``grad_fn(w, theta)`` is the branch-shared Lagrangian gradient; the
+    flat plan's ``3·v_s`` forward seeds serve every branch. (S, 3·v_s,
+    n_w)."""
+    if w_batch.shape[0] == 1:
+        th0 = _theta_row(theta_batch, 0)
+        return banded_lagrangian_hessian(plan, lambda w: grad_fn(w, th0),
+                                         w_batch)
+    return banded_lagrangian_hessian(plan, grad_fn, w_batch, theta_batch)
+
+
+def tree_assemble_kkt_banded(plan: StageJacobianPlan, CH_batch, Jg_batch,
+                             Jh_batch, sigma_batch, w_diag_batch,
+                             delta_c: float):
+    """Scenario-batched banded KKT assembly: (D, E) stacks with a leading
+    scenario axis, ready for
+    :func:`~agentlib_mpc_torch.ops.stagewise.factor_kkt_scenarios_banded`.
+    The flat assembly is batch-first, so every scenario count takes it."""
+    return assemble_kkt_banded(plan, CH_batch, Jg_batch, Jh_batch,
+                               sigma_batch, w_diag_batch, delta_c)
+
+
+def tree_plan_from_certificate(nlp, theta, n_w: int, tree_partition,
+                               log=None, label: str = "scenario tree"
+                               ) -> "StageJacobianPlan | None":
+    """Routing authority of the tree-banded derivative pipeline: one flat
+    certification against the tree partition's per-branch
+    :class:`~agentlib_mpc_torch.ops.stagewise.StagePartition` answers for
+    every branch; refuted or unknown structure returns None (dense)."""
+    base = getattr(tree_partition, "base", tree_partition)
+    return plan_from_certificate(nlp, theta, n_w, base, log=log,
+                                 label=label)

@@ -62,6 +62,7 @@ __all__ = [
     "factor_kkt_scenarios_banded",
     "factor_kkt_stage",
     "factor_kkt_stage_banded",
+    "repeat_scenario_factor",
     "resolve_kkt_scenarios",
     "resolve_kkt_scenarios_banded",
     "resolve_kkt_stage",
@@ -435,6 +436,18 @@ def resolve_kkt_scenarios(factor, rhs_batch: torch.Tensor,
     """Solve ``rhs_batch`` (S, M) against a stored scenario-batched factor;
     rows are in original KKT order per scenario."""
     return resolve_kkt_stage(factor[1], rhs_batch, partition, refine_steps)
+
+
+def repeat_scenario_factor(factor, reps: int):
+    """A scenario-batched factor (:func:`factor_kkt_scenarios`) whose batch
+    is the stored one ``reps`` times over, so that one resolve takes
+    ``reps`` right-hand-side stacks at once: ``rhs`` (reps·S, M), stack
+    ``r`` in rows ``r·S .. (r+1)·S``. The batched form of the JAX package's
+    ``vmap`` of resolves against one factor."""
+    tag, (F, E, Ks, scale, _lead) = factor
+    rep = lambda t: t.repeat((reps,) + (1,) * (t.ndim - 1))
+    return (tag, (rep(F), rep(E), rep(Ks), rep(scale),
+                  (reps * Ks.shape[0],)))
 
 
 def factor_kkt_scenarios_banded(D_batch: torch.Tensor,

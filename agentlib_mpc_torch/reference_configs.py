@@ -61,7 +61,9 @@
   :func:`three_zone_datadriven_configs`
   (``examples/three_zone_datadriven_admm.py``: three ``jax_admm_ml``
   zones and the physical AHU as ``admm_local`` modules, HORIZON 8, 10 ADMM
-  iterations, rho 20, and three simulated ``CooledRoom`` plants).
+  iterations, rho 20, and three simulated ``CooledRoom`` plants);
+- :func:`tracker_ocp`: the JAX package's gate workload, a one-control
+  tracker (N=4 multiple shooting), the scenario fleet's test problem.
 
 The three coordinator and four-room configs use degree-2 Legendre
 collocation, N=8 and a step every 300 s, as their sources do.
@@ -1044,3 +1046,26 @@ def three_zone_datadriven_configs(surrogates, max_iterations: int = 10,
         ],
     }
     return [*zones, ahu, *sims]
+
+
+class _Tracker(Model):
+    """A one-control tracker, min (u − a)²."""
+
+    inputs = [control_input("u", 0.0, lb=-5.0, ub=5.0)]
+    parameters = [parameter("a", 1.0)]
+
+    def setup(self, v):
+        eq = ModelEquations()
+        eq.objective = SubObjective((v.u - v.a) ** 2, name="track")
+        return eq
+
+
+def tracker_ocp():
+    """The JAX package's gate workload (``agentlib_mpc_tpu/lint/
+    retrace_budget.py:104-124``): the one-control tracker on a 4-interval
+    multiple-shooting grid (dt 0.5), transcribed by the port. Structurally
+    the consensus bench agents' shape; solves in milliseconds."""
+    from agentlib_mpc_torch.ops.transcription import transcribe
+
+    return transcribe(_Tracker(), ["u"], N=4, dt=0.5,
+                      method="multiple_shooting")

@@ -3,8 +3,10 @@
 Port of the part of ``agentlib_mpc_tpu/resilience/`` the module path runs:
 :mod:`.guard` (per-solve health checks and the shift-and-replay → hold →
 FallbackPID cascade driven from
-:class:`~agentlib_mpc_torch.modules.mpc.BaseMPC`). The chaos harness
-(``chaos.py``) comes with ROADMAP Queue 1 item 5.
+:class:`~agentlib_mpc_torch.modules.mpc.BaseMPC`), and of the chaos
+harness only its seeded disturbance source (:func:`chaos.
+disturbance_model`, which scenario generation shares); the injectors come
+with ROADMAP Queue 1 item 5.
 """
 
 from agentlib_mpc_torch.resilience.guard import (

@@ -37,7 +37,10 @@ An ML model's trained parameters (``MLModel.ml_params``, a pytree of
 arrays per surrogate) come in through :func:`ml_params_from_jax`, and into
 an ML backend (its model and its device copy) through
 :func:`load_ml_model_state`; serialized model documents need no
-conversion (both packages read and write the same JSON).
+conversion (both packages read and write the same JSON). A scenario
+fleet's state (``ScenarioState``) comes in through
+:func:`scenario_state_from_jax`, checked against the fleet it continues in
+by :func:`load_scenario_state`.
 """
 
 from __future__ import annotations
@@ -323,3 +326,47 @@ def load_ml_model_state(backend, model_or_params) -> None:
     model.ml_params.update(host)
     backend._theta0 = backend._theta0._replace(ml_params=cast_params(
         model.ml_params, backend.device, backend.dtype))
+
+
+def scenario_state_from_jax(state, device=None,
+                            dtype: torch.dtype = torch.float32):
+    """The port's :class:`~agentlib_mpc_torch.scenario.fleet.ScenarioState`
+    from another framework's (any object or mapping with its fields, the
+    leaves numpy arrays: ``zbar`` and ``lam`` per alias, ``nu``,
+    ``na_target``, ``w``, ``y``, ``z``), on ``device`` (None: the card) in
+    ``dtype``: a round the JAX package started continues in the port."""
+    from agentlib_mpc_torch.scenario.fleet import ScenarioState
+
+    return _named_from_numpy(ScenarioState, state, device, dtype)
+
+
+def load_scenario_state(fleet, state, dtype: torch.dtype = torch.float32):
+    """:func:`scenario_state_from_jax` onto ``fleet``'s device, checked
+    against its layout: ``(n_agents, S)`` leading every per-branch leaf,
+    ``(S, T)`` every mean, the robust horizon and the controls in ``nu``
+    and ``na_target``, and one entry per coupling alias. Raises
+    ``ValueError`` on a state of another fleet."""
+    out = scenario_state_from_jax(state, fleet.device, dtype)
+    n_a, S, T = fleet.group.n_agents, fleet.S, fleet.T
+    if sorted(out.zbar) != sorted(fleet.group.couplings) or \
+            sorted(out.lam) != sorted(fleet.group.couplings):
+        raise ValueError(
+            f"state couples {sorted(out.zbar)}, the fleet "
+            f"{sorted(fleet.group.couplings)}")
+    ocp = fleet.group.ocp
+    want = {"nu": (n_a, S, fleet.R, fleet.n_u),
+            "na_target": (n_a, S, fleet.R, fleet.n_u),
+            "w": (n_a, S, ocp.n_w), "y": (n_a, S, ocp.n_g),
+            "z": (n_a, S, ocp.n_h)}
+    want.update({f"zbar[{a}]": (S, T) for a in out.zbar})
+    want.update({f"lam[{a}]": (n_a, S, T) for a in out.lam})
+    have = {"nu": out.nu, "na_target": out.na_target, "w": out.w,
+            "y": out.y, "z": out.z}
+    have.update({f"zbar[{a}]": v for a, v in out.zbar.items()})
+    have.update({f"lam[{a}]": v for a, v in out.lam.items()})
+    for name, shape in want.items():
+        if tuple(have[name].shape) != shape:
+            raise ValueError(
+                f"state's {name} is {tuple(have[name].shape)}, the fleet "
+                f"needs {shape}")
+    return out

@@ -99,12 +99,32 @@ def try_forecast_ensemble(df, column: str, t0: float, horizon_steps: int,
                           n_scenarios: int, seed: int = 0,
                           spread: "float | None" = None,
                           dt: float = _HOUR) -> np.ndarray:
-    """Batched forecast ensemble from a parsed TRY table (the JAX
-    package's scenario-generation hook). Its disturbance model lives in
-    the chaos harness, which comes with the scenario-tree slice."""
-    raise NotImplementedError(
-        "TRY forecast ensembles need the scenario-tree slice, which is not "
-        "ported yet (ROADMAP Queue 1 item 4)")
+    """Batched forecast ensemble from a parsed TRY table: ``(S,
+    horizon_steps)`` trajectories of ``column`` starting at ``t0`` (seconds
+    on the table's index) on a ``dt`` grid. Row 0 is the nominal
+    interpolated series, rows 1.. seeded random-walk perturbations from
+    :func:`~agentlib_mpc_torch.resilience.chaos.disturbance_model` (the
+    JAX package's draws bit for bit). ``spread`` is the per-step walk
+    sigma; None defaults to 5% of the window's peak-to-peak range.
+
+    The rows plug into
+    :func:`agentlib_mpc_torch.scenario.generate.scenario_thetas` as one
+    exogenous channel's per-scenario ``d_traj`` column."""
+    from agentlib_mpc_torch.resilience.chaos import disturbance_model
+
+    if column not in df.columns:
+        raise KeyError(
+            f"column {column!r} not in the TRY table "
+            f"({sorted(df.columns)})")
+    grid = float(t0) + np.arange(int(horizon_steps)) * float(dt)
+    base = np.interp(grid, np.asarray(df.index, dtype=float),
+                     np.asarray(df[column], dtype=float))
+    sigma = float(spread) if spread is not None else \
+        0.05 * float(np.ptp(base)) if base.size else 0.0
+    draws = disturbance_model(
+        seed=seed + int(t0), horizon=base.shape[0],
+        n_scenarios=int(n_scenarios), scale=sigma, kind="walk")
+    return base[None, :] + draws[:, :, 0]
 
 
 def is_try_file(path) -> bool:

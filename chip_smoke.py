@@ -100,7 +100,44 @@ non-zero without printing a result:
               ``Model.simulate_step``, ``update_agent``, ``advance``), a
               checkpoint after the first, restored into a fresh fleet whose
               next round must equal the uninterrupted one bitwise.
-15. module_one_room — the module path: ``LocalMAS`` over the two-agent
+15. scenario_tree_kkt — the coupled tree KKT solve
+              (``scenario.tree.solve_kkt_tree``: every branch's stage
+              sweep and the non-anticipativity Schur complement, as a
+              batch of one, all on the kernels) on the zone OCP's
+              partition (N=10, KKT 92, 11 stages of 10) for a fan of 8
+              scenarios (7 coupling rows) and a (4, 2) branching tree
+              (11 rows), on synthetic systems in f32 and f64:
+              ``tree_method_available`` true for each, the coupled
+              residual below the probe's 1e-3 in f32 and 1e-8 in f64 (the
+              exact system, δ_c = 0), the card's f64 solution within
+              1e-10 of the plain versions' on the CPU, one solve's ms.
+16. scenario_ab — ``bench.py``'s ``--scenario-ab`` workload at one
+              device through ``ScenarioFleet``: 4 zones × 8 scenarios
+              (each zone's load perturbed by ``ensemble_thetas``), the
+              slice's solver and budgets, ρ = ρ_na = 20, in f32: 8 serial
+              single-scenario rounds and the uncoupled batched round
+              (robust horizon 0, exits pinned; bench.py's identity gate
+              1e-3 on z̄), the robust round (robust horizon 1, live
+              exits; u0 identical across branches, ``na_spread``), and
+              ``robust_scenario_controls`` for zone 0 with its warm
+              re-solve; ms per scenario of each leg. The batched, robust
+              and controls legs in f64 on the card are held against the
+              same legs in f64 on the CPU with the plain versions (a
+              subprocess from the script's start): z̄ and u0 within
+              ZBAR_TOL, the same iterations and ``converged``; the f32
+              legs' distance from it is reported.
+17. scenario_fleet — the main path's fleet (256 zones, N=10) × a fan of 8
+              scenarios (u_0 shared) through ``ScenarioFleet``: 2 048
+              lanes of one batched solve per ADMM iteration, a cold and a
+              warm round in f32 with the launch counters reset just
+              before and read just after (every factor at (2048, 92), 6
+              solves per factor, at most the inner budgets' factors),
+              peak memory, ``local_solves_ok``, ``lane_quarantined`` and
+              ``na_spread`` per round, a profiled warm round; the same
+              rounds in f64 on the card: z̄ within ZBAR_TOL, u0 within
+              ZBAR_TOL in the median and on all but 5 % of the zones,
+              u0 identical across each zone's branches in both types.
+18. module_one_room — the module path: ``LocalMAS`` over the two-agent
               one-room MAS of ``tests/test_mas_one_room.py``
               (``agentlib_mpc_torch/reference_configs.py``; the ``mpc``
               module on the ``jax`` backend, N=15, degree-2 Legendre
@@ -112,7 +149,7 @@ non-zero without printing a result:
               first and median warm solve, the simulator's time, a profiled
               solve; quality: the same MAS in f64 on the CPU with the plain
               LDLᵀ, comfort error (AIE) and cooling energy within 1 %.
-16. module_linear_qp — ``examples/linear_qp_mpc.py``'s agent the same way
+19. module_linear_qp — ``examples/linear_qp_mpc.py``'s agent the same way
               (N=8, KKT 74) on the QP fast path, in f64 on the card: the
               float64 kernels, only at (1, 74), one factor and six solves
               per QP iteration; every solve successful with the guard at
@@ -123,7 +160,7 @@ non-zero without printing a result:
               the CPU is reported beside it. (In f32 the pivot-free LDLᵀ
               breaks down on this QP in both packages:
               ``scripts/linear_qp_f32_witness.py``.)
-17. module_mhe — ``examples/mhe_one_room.py``'s two agents for 1 800 s
+20. module_mhe — ``examples/mhe_one_room.py``'s two agents for 1 800 s
               (cut from the example's 3 600 s for the script's time
               limit) in f32 on the card (the module path's default): the
               ``mhe`` module (``jax_mhe``, horizon 10, its estimation OCP
@@ -138,7 +175,7 @@ non-zero without printing a result:
               port's solver counted steps taken only inside the line
               search's noise allowance as no progress, its MPC failed 3
               of 31 solves here in f32: ``scripts/module_f32_witness.py``.)
-18. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
+21. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
               agent for 1 800 s in f64 (a quarter of the example's run,
               for the script's time limit): the relaxed program on the QP at
               (1, 34), the CIA schedule from the native library
@@ -151,7 +188,8 @@ non-zero without printing a result:
               from the same inputs and warm state (a subprocess): the same
               command and relaxed-QP iterations, the relaxed trajectory
               within 1e-6 K.
-19. module_minlp_bb — the same agent on ``jax_minlp_bb`` (max_nodes 48,
+22. module_minlp_bb — the same agent on ``jax_minlp_bb`` (max_nodes 16,
+              cut from the example's 48 when the scenario phases came;
               batch_pairs 4) for 2 100 s in f64: node relaxations as one
               batched NLP per sweep at (8, 34), exact launches per fixed
               solve and per sweep, the example's gates, on every step the
@@ -160,7 +198,7 @@ non-zero without printing a result:
               step in the line). module_one_room, module_linear_qp,
               module_mhe, module_admm and module_admm_exchange each have a
               ``*_profile`` line.
-20. module_admm — ``examples/admm_cooled_room.py``'s three agents for
+23. module_admm — ``examples/admm_cooled_room.py``'s three agents for
               600 s in f32 (two control steps, for the script's time
               limit): the room and the cooler as ``admm_local``
               modules over ``jax_admm``, whose augmented problems route by
@@ -175,7 +213,7 @@ non-zero without printing a result:
               other at the last step's last iteration, the gap printed per
               step), the final temperature within 0.02 K of the same loop
               in f64 on the CPU.
-21. module_admm_rt — ``tests/test_admm_realtime.py``'s pair of real-time
+24. module_admm_rt — ``tests/test_admm_realtime.py``'s pair of real-time
               ``admm`` modules (N=4, a step every 8 s) on the wall clock
               for 10 s of the MAS's clock in f64 (in f32 the room's solves
               fail on the pivot-free LDLᵀ in both packages:
@@ -187,10 +225,11 @@ non-zero without printing a result:
               worker thread on the default stream, the room's mean air flow
               finite with shape (4,), no worker alive afterwards, and the
               launches exact per iteration over both threads.
-22. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
+25. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
               agents for 300 s (one round; two until the fleet phases
-              came), 8 ADMM iterations (the example's 15, cut when the ML
-              phases came), in f64 (in f32 the JAX
+              came), 6 ADMM iterations (the example's 15, cut to 8 when
+              the ML phases came and to 6 when the scenario phases
+              came), in f64 (in f32 the JAX
               package's loop fails two room solves on the pivot-free LDLᵀ:
               ``scripts/admm_f32_witness.py``): an ``admm_coordinator``
               drives four ``CooledRoom`` participants (NLP at (1, 74), one
@@ -207,19 +246,20 @@ non-zero without printing a result:
               0.01 K and mean flow within 1e-5 m³/s of the CPU's; the
               allocation order (room 4's mean flow above room 1's) printed
               with its margin; per round the residual trails and rho.
-23. module_admm_exchange — ``examples/exchange_admm_4rooms.py``'s nine
+26. module_admm_exchange — ``examples/exchange_admm_4rooms.py``'s nine
               agents for 300 s (one step) in f32: four ``ExchangeRoom``
               agents (NLP at (1, 74), 1:3) and the supplier (QP at (1, 8),
               1:6) as ``admm_local`` modules on one exchange alias; every
               solve successful at guard level 0 with no warm-start reset,
-              6 ADMM iterations per step on all five (the example's 12,
-              cut for the script's time limit), each registered its
+              4 ADMM iterations per step on all five (the example's 12,
+              cut for the script's time limit: to 6 when the ML phases
+              came, to 4 when the scenario phases came), each registered its
               four peers; the example's balance gate (supplier against the
               rooms' total within 0.02 m³/s) and the building cools; each
               room's final temperature within 0.01 K and the supplier's
               flow within 1e-4 m³/s of the same loop in f64 on the CPU; a
               profiled room solve.
-24. module_ml_mpc — ``examples/ml_mpc_one_room.py`` through the port: the
+27. module_ml_mpc — ``examples/ml_mpc_one_room.py`` through the port: the
               example's 500 seeded plant steps train its ANN NARX
               surrogate (hidden (16, 16), 300 epochs, lr 3e-3) on the card
               in f64 with ``ANNTrainerCore``; a CPU f64 training of the same
@@ -235,11 +275,12 @@ non-zero without printing a result:
               factor and three solves per iteration); cold and warm solve
               ms, training seconds and a profiled warm solve (``ml.predict``
               inside ``ipm.eval_jac``).
-25. module_ml_admm — ``examples/three_zone_datadriven_admm.py``'s seven
+28. module_ml_admm — ``examples/three_zone_datadriven_admm.py``'s seven
               agents through LocalMAS for one control step (300 s) in f64:
               three ``ZoneSurrogate`` zones on ``jax_admm_ml`` (HORIZON 8,
-              ``max_iter`` 60) and the physical AHU on ``jax_admm``, 10 ADMM
-              iterations, rho 20. The three surrogates are trained on the
+              ``max_iter`` 60) and the physical AHU on ``jax_admm``, 8 ADMM
+              iterations (the example's 10, cut when the scenario phases
+              came), rho 20. The three surrogates are trained on the
               card (seeds as in the example) and their validation MSEs held
               within 1 % of the CPU's; the loop runs with the CPU-trained
               surrogates, held against the same step in f64 on the CPU:
@@ -247,7 +288,7 @@ non-zero without printing a result:
               zones' coupling gap at the last iteration equal to the CPU's,
               each zone's first move within 1e-6 m³/s of the CPU's,
               launches exact.
-26. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
+29. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
               they are: coordinated ADMM, the CooledRoom with its plant,
               the Cooler) as three container processes on the card in
               f64, joined over a ``MiniBroker`` of the port in this
@@ -266,20 +307,20 @@ non-zero without printing a result:
               at the real-time pair's shapes in float64, the
               coordinator's CSV has its residual columns and the room's
               ADMM CSV loads through ``utils.analysis``.
-27. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
+30. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
               (one ``spawn``ed process each on its TCP relay, device
               ``cuda``, f64, real time at factor 1.0); each child's
               launch counts and solves are written at its exit by the
               ``bootstrap`` hook (:func:`fleet_child_bootstrap`): results
               from all four agents, at least two rounds, every solve
               successful, launches exact.
-28. path_shapes — every (B, M) a path launched, in each type it launched
+31. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
 
-The f64 CPU references of the slice, qp_slice, fused_slice and
-fused_linear paths and of the module phases run in subprocesses of this
+The f64 CPU references of the slice, qp_slice, fused_slice,
+fused_linear and scenario_ab paths and of the module phases run in subprocesses of this
 script (``--cpu-reference NAME``) started at the beginning, beside the
 card's phases (the module phases' at a lower scheduling priority), and are
 ended with the script; they and the replays of the linear-QP and CIA
@@ -321,6 +362,8 @@ SLOPE_M = (32, 64, 92, 128)
 #: separately, IEEE division) in the same per-element order, so they must
 #: agree bitwise
 KERNEL_ABS_TOL = 0.0
+#: a library yardstick call longer than this is timed once (ms)
+LIBRARY_ONE_CALL_MS = 500.0
 #: relative residual max|Kx − b| / max|b| of the equilibrated, refined
 #: solve (solve_kkt_ldl) in f32 on these quasi-definite batches
 RESIDUAL_TOL = 1e-3
@@ -519,13 +562,19 @@ MINLP_CIA_DUTY_TOL = 0.02
 #: iterations 15 to 17 with objectives 3e-4 apart in both packages
 #: (scripts/module_f32_witness.py, ``fixed_3900``)
 MINLP_CIA_REPLAY_TOL_K = 1e-6
-#: the jax_minlp_bb agent at the example's width (N=8, max_nodes 48,
-#: batch_pairs 4), cut in depth to 2 100 s (8 controller steps): the
-#: example's controller keeps the chiller on until it has cooled the zone
-#: to ~291.5 K and first switches it off at t = 1 800 s (both packages,
-#: f64 on the CPU), so 2 100 s is the shortest run whose duty cycle can
-#: fall inside (0, 1)
+#: the jax_minlp_bb agent at the example's width (N=8, batch_pairs 4),
+#: cut in depth to 2 100 s (8 controller steps): the example's controller
+#: keeps the chiller on until it has cooled the zone to ~291.5 K and first
+#: switches it off at t = 1 800 s (both packages, f64 on the CPU), so
+#: 2 100 s is the shortest run whose duty cycle can fall inside (0, 1).
+#: Its node budget is cut from the example's 48 to 16 when the scenario
+#: phases came, for the script's time limit: at 48 the card's steps
+#: explored 9-52 nodes and proved 6 of 8 incumbents optimal (the phase's
+#: bb_nodes and bb_proven_optimal); at 16 a step stops after its sweep
+#: that passes 16 nodes, and what it proves and how its incumbent compares
+#: with the rounding heuristic's are in the same line
 MINLP_BB_UNTIL = 2100.0
+MINLP_BB_MAX_NODES = 16
 
 #: decentralized consensus ADMM on the module path: examples/admm_cooled_
 #: room.py's room and cooler (admm_local over jax_admm, N=8, 6 ADMM
@@ -578,10 +627,11 @@ COORD_DTYPE, EXCHANGE_DTYPE = "float64", "float32"
 ROOMS = tuple(f"Room_{i}" for i in range(1, 5))
 SIMULATORS = tuple((f"Simulation_{i}", "simulator") for i in range(1, 5))
 #: the coordinator's ADMM iterations per round: the example's 15, of which
-#: the last 7 were cut when the ML phases came, for the script's time
-#: limit (the f64 CPU loop then fails no solve, the building cools and the
-#: peak total flow is 0.08 m³/s, at 8 as at 10 iterations)
-COORD_ADMM_ITER_MAX = 8
+#: the last 7 were cut when the ML phases came and 2 more when the
+#: scenario phases came, for the script's time limit (the f64 CPU loop
+#: then fails no solve, the building cools and the peak total flow is
+#: 0.08 m³/s, at 8 as at 10 iterations; at 6 the reference line's)
+COORD_ADMM_ITER_MAX = 6
 #: the coordinator loop may fail one solve (of 40 in one round), and no
 #: room's (the JAX package's own float64 loop fails the AHU's at t = 300 s,
 #: in the second round)
@@ -595,14 +645,16 @@ COORD_T_TOL_K, COORD_FLOW_TOL = 0.01, 1e-5
 #: examples/admm_4rooms_coordinator.py's capacity gate on the peak total
 #: actuated flow
 COORD_PEAK_FLOW = 0.075 * 1.10 + 1e-9
-#: the exchange loop: every solve succeeds; 6 ADMM iterations per step on
+#: the exchange loop: every solve succeeds; 4 ADMM iterations per step on
 #: every agent (the example's last 6 of 12 cut when the ML phases came,
 #: for the script's time limit: the f64 CPU loop then balances within
-#: 1.5e-9 m³/s); the example's balance gate |supplier − total room flow| at
-#: the last step; each room's final temperature within 0.01 K of f64 on the
-#: CPU (the JAX package's own f32/f64 gap is at most 7e-5 K) and the
+#: 1.5e-9 m³/s; 2 more when the scenario phases came: the f64 CPU loop's
+#: rooms, flows and balance are the reference line's, beside the card's);
+#: the example's balance gate |supplier − total room flow| at the last
+#: step; each room's final temperature within 0.01 K of f64 on the CPU
+#: (the JAX package's own f32/f64 gap is at most 7e-5 K) and the
 #: supplier's flow within 1e-4 m³/s of it
-EXCHANGE_ITERATIONS = 6
+EXCHANGE_ITERATIONS = 4
 EXCHANGE_BALANCE_TOL = 0.02
 EXCHANGE_T_TOL_K, EXCHANGE_SUPPLY_TOL = 0.01, 1e-4
 
@@ -636,10 +688,12 @@ ML_MPC_MAX_FAILED = 2
 ML_MPC_TAIL_MARGIN_K = 0.3
 ML_VAL_MSE_RTOL = 0.01
 #: module_ml_admm (examples/three_zone_datadriven_admm.py): one control
-#: step; the zones' first moves (m³/s) and the coupling gap against the
-#: f64 CPU step
+#: step of 8 ADMM iterations (the example's 10, of which the last 2 were
+#: cut when the scenario phases came, for the script's time limit; the
+#: f64 CPU step runs the same 8); the zones' first moves (m³/s) and the
+#: coupling gap against the f64 CPU step
 ML_ADMM_UNTIL = 300.0
-ML_ADMM_ITERATIONS = 10
+ML_ADMM_ITERATIONS = 8
 ML_ADMM_MOVE_TOL = 1e-6
 ML_ADMM_GAP_TOL = 1e-6
 ZONES = ("Zone_1", "Zone_2", "Zone_3")
@@ -1067,7 +1121,8 @@ def phase_profile(torch, run, warm_ms, name="profile"):
     n_dev = 0
     for e in prof.profiler.kineto_results.events():
         event_name = e.name()
-        ranged = event_name.startswith(("ipm.", "admm.", "ml."))
+        ranged = event_name.startswith(("ipm.", "admm.", "ml.",
+                                        "scenario."))
         kind = e.device_type()
         if kind == cuda and not ranged:
             table = by_name
@@ -1165,7 +1220,15 @@ def kernel_row(torch, name, K, b):
             "device_ms": device_ms(torch, raw, f"{name}_kernel"),
             "ms": time_ms(raw, 200), "plain_ms": time_ms(plain, 10),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(library, 5, 1)}
+            "library_ms": library_ms(library)}
+
+
+def library_ms(library) -> float:
+    """The library yardstick's ms per call: five calls after a warm-up,
+    or one first call alone where it takes over LIBRARY_ONE_CALL_MS
+    (``torch.linalg.ldl_*`` at 2 048 systems of 92: seconds a call)."""
+    once = time_ms(library, 1, 0)
+    return once if once > LIBRARY_ONE_CALL_MS else time_ms(library, 5, 1)
 
 
 def phase_stage_kernels(torch, dev):
@@ -2224,6 +2287,435 @@ def phase_fused_fleet(torch, dev, smi):
     return totals
 
 
+#: scenario trees (PR 13). The tree KKT: the zone OCP's stage partition per
+#: branch (N=10, KKT 92) under a fan of 8 scenarios (u_0 shared: 7
+#: coupling rows) and a (4, 2) branching tree (u_0 and u_1 shared: 11
+#: rows), on the synthetic systems of scenario.tree.synthetic_tree_kkt.
+#: Residual of the coupled system (scenario.tree.tree_kkt_residual): the
+#: JAX package's probe bound in f32 (TREE_PROBE_TOL, 1e-3, with its
+#: coupling regularization δ_c = 1e-8); in f64 the exact coupled system
+#: (δ_c = 0: the Schur complement A K⁻¹ Aᵀ is SPD on its own; with
+#: δ_c = 1e-8, A x is δ_c·ν ≈ 2e-8 by construction), held to 1e-8, and
+#: the card's f64 solution to the plain versions' on the CPU within
+#: TREE_CPU_TOL
+SCENARIOS = 8
+TREE_F64_TOL = 1e-8
+TREE_CPU_TOL = 1e-10
+#: bench.py's --scenario-ab workload (bench.py:1266-1431): 4 zones × 8
+#: scenarios coupled on the supply air flow, the slice's solver and
+#: budgets, ρ = ρ_na = 20; each zone's load perturbed per scenario by
+#: ensemble_thetas (seed = zone, scale 0.15 of its load). The identity
+#: gate is bench.py's own: the uncoupled batched round (robust horizon 0,
+#: Boyd exits pinned to zero) within 1e-3 of the serial single-scenario
+#: rounds in z̄
+SCENARIO_AB_ZONES = 4
+SCENARIO_AB_LOAD_SCALE = 0.15
+SCENARIO_AB_IDENTITY_TOL = 1e-3
+SCENARIO_ALIAS = "mDotCoolAir"
+
+
+def scenario_options(pinned: bool = False):
+    """The scenario fleets' options: the slice's ADMM iterations and
+    budgets, ρ = ρ_na = FUSED_RHO; ``pinned`` zeroes the Boyd exits."""
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.scenario import ScenarioFleetOptions
+
+    exits = dict(abs_tol=0.0, rel_tol=0.0, primal_tol=0.0,
+                 dual_tol=0.0) if pinned else {}
+    return ScenarioFleetOptions(
+        max_iterations=admm_step.ADMM_ITERS, rho=FUSED_RHO,
+        rho_na=FUSED_RHO, warm_budget=admm_step.WARM_BUDGET,
+        warm_mu=admm_step.WARM_MU, **exits)
+
+
+def scenario_thetas(torch, ocp, n_zones: int, dev, dtype):
+    """(n_zones, SCENARIOS) parameters: each zone's x0 and load
+    (``fleet_inputs``), the load perturbed per scenario by ensemble_thetas
+    (seed = zone, scale SCENARIO_AB_LOAD_SCALE of the load), built in f64
+    on the CPU and cast once."""
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.parallel.fused_admm import stack_params
+    from agentlib_mpc_torch.scenario import ensemble_thetas, fan_tree
+
+    x0s, loads = admm_step.fleet_inputs(n_zones)
+    tree = fan_tree(SCENARIOS)
+    f64 = torch.float64
+    rows = []
+    for i in range(n_zones):
+        d = np.tile([loads[i], *admm_step.ZONE_D_ROW_TAIL], (ocp.N, 1))
+        th = ocp.default_params(device="cpu", dtype=f64,
+                                x0=torch.tensor([x0s[i]], dtype=f64),
+                                d_traj=torch.tensor(d, dtype=f64))
+        rows.append(ensemble_thetas(
+            th, tree, seed=i, scale=SCENARIO_AB_LOAD_SCALE * loads[i],
+            channels=(0,)))
+    batch = stack_params(rows)
+    return batch._replace(**{k: v.to(device=dev, dtype=dtype)
+                             for k, v in batch._asdict().items()})
+
+
+def scenario_fleet(torch, n_zones: int, tree, dev, pinned: bool = False,
+                   kkt_method: str = "auto"):
+    """(engine, ocp): the zone fleet's ScenarioFleet on ``dev``."""
+    from agentlib_mpc_torch.ops.solver import SolverOptions
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.parallel.fused_admm import AgentGroup
+    from agentlib_mpc_torch.scenario import ScenarioFleet
+
+    ocp = admm_step.zone_ocp()
+    group = AgentGroup(
+        name="zones", ocp=ocp, n_agents=n_zones,
+        couplings={SCENARIO_ALIAS: "mDot"},
+        solver_options=SolverOptions(**admm_step.SOLVER_BASE,
+                                     mu_init=admm_step.COLD_MU,
+                                     kkt_method=kkt_method))
+    return ScenarioFleet(group, tree, scenario_options(pinned),
+                         device=dev), ocp
+
+
+def scenario_rounds(torch, fleet, thetas, steps: int, sync):
+    """``steps`` rounds, the first cold, the others after shift_state:
+    per round wall ms, state, stats and the kernel launches."""
+    from agentlib_mpc_torch.ops import kkt
+
+    state = fleet.init_state(thetas)
+    rows = []
+    for k in range(steps):
+        if k:
+            state = fleet.shift_state(state)
+        before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+        t0 = time.perf_counter()
+        state, _trajs, stats = fleet.step(state, thetas)
+        sync()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "state": state, "stats": stats,
+                     "u0": fleet.actuated_u0(state),
+                     "launches": (kkt.ldl_factor.launches - before[0],
+                                  kkt.ldl_solve.launches - before[1])})
+    return rows
+
+
+def phase_scenario_tree_kkt(torch, dev, smi):
+    """The coupled tree KKT solve (scenario.tree.solve_kkt_tree: stage
+    sweeps of every branch and the non-anticipativity Schur complement,
+    all on the kernels) on the zone OCP's partition for a fan of 8 and a
+    (4, 2) branching tree, in f32 and f64: the probe, the coupled
+    residual, the card's f64 solution against the plain versions' on the
+    CPU, and the time of one solve."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.scenario import tree as st
+
+    ocp = admm_step.zone_ocp()
+    trees = {"fan8_r1": st.fan_tree(SCENARIOS, robust_horizon=1),
+             "branching_4x2": st.branching_tree((4, 2))}
+    parts = {name: st.tree_partition_for_ocp(ocp, t)
+             for name, t in trees.items()}
+    probes = {f"{name} {str(dtype)[6:]}": st.tree_method_available(
+        tp, dev, dtype) for name, tp in parts.items()
+        for dtype in (torch.float32, torch.float64)}
+    for key, ok in probes.items():
+        check(ok, f"scenario_tree_kkt: tree_method_available false for {key}")
+    rows = []
+    torch.cuda.synchronize()
+    kkt.reset_launch_counts()
+    for name, tp in parts.items():
+        K_np, r_np = st.synthetic_tree_kkt(tp, seed=7)
+        for dtype, delta, tol in ((torch.float32, 1e-8, st.TREE_PROBE_TOL),
+                                  (torch.float64, 0.0, TREE_F64_TOL)):
+            K = torch.as_tensor(K_np, dtype=dtype, device=dev)
+            r = torch.as_tensor(r_np, dtype=dtype, device=dev)
+            x = st.solve_kkt_tree(K, r, tp, delta_c=delta)
+            res = float(st.tree_kkt_residual(K, r, x, tp))
+            row = {"tree": name, "dtype": str(dtype)[6:],
+                   "coupling_rows": tp.n_coupling_rows, "delta_c": delta,
+                   "residual": res, "tol": tol}
+            if dtype == torch.float64:
+                x_cpu = st.solve_kkt_tree(K.cpu(), r.cpu(), tp, delta_c=delta)
+                row["cpu_plain_max_abs_diff"] = float(
+                    (x.cpu() - x_cpu).abs().max())
+                check(row["cpu_plain_max_abs_diff"] <= TREE_CPU_TOL,
+                      f"scenario_tree_kkt {name}: the card's f64 solve is "
+                      f"{row['cpu_plain_max_abs_diff']} from the CPU's")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.solve_kkt_tree(K, r, tp, delta_c=delta)
+            torch.cuda.synchronize()
+            row["solve_ms"] = (time.perf_counter() - t0) * 1e3
+            check(np.isfinite(res) and res < tol,
+                  f"scenario_tree_kkt {name} {row['dtype']}: residual {res}")
+            rows.append(row)
+    totals = launch_totals(kkt)
+    emit({"phase": "scenario_tree_kkt", "kkt_size": ocp.n_w + ocp.n_g,
+          "stage_block": parts["fan8_r1"].base.block,
+          "stages": parts["fan8_r1"].base.n_stages, "probes": probes,
+          "solves": rows, "launches": totals, "nvidia_smi": smi})
+    return totals
+
+
+def scenario_ab_run(torch, dev, dtype, sync, serial: bool = True) -> dict:
+    """bench.py's --scenario-ab legs on ``dev`` in ``dtype`` (the card's
+    f32 run and the CPU's f64 reference): the serial single-scenario
+    rounds (left out with ``serial=False``) and the uncoupled batched
+    round with pinned exits, the robust round with live exits, and
+    robust_scenario_controls for zone 0 with its warm re-solve. Per leg
+    its ms, z̄, u0, iterations and converged, as plain data."""
+    from agentlib_mpc_torch.backends.mpc_backend import (
+        robust_scenario_controls,
+    )
+    from agentlib_mpc_torch.scenario import fan_tree, single_scenario
+
+    n, S = SCENARIO_AB_ZONES, SCENARIOS
+    kkt_method = "ldl" if torch.device(dev).type == "cpu" else "auto"
+    one, ocp = scenario_fleet(torch, n, single_scenario(), dev,
+                              pinned=True, kkt_method=kkt_method)
+    thetas = scenario_thetas(torch, ocp, n, dev, dtype)
+
+    def leg(fleet, th):
+        row = scenario_rounds(torch, fleet, th, 1, sync)[0]
+        st = row["stats"]
+        return {"ms": row["ms"],
+                "zbar": row["state"].zbar[SCENARIO_ALIAS].double().cpu()
+                .tolist(),
+                "u0": row["u0"].double().cpu().tolist(),
+                "iterations": int(st.iterations),
+                "converged": bool(st.converged),
+                "local_solves_ok": bool(st.local_solves_ok),
+                "na_spread": float(st.na_spread),
+                "launches": list(row["launches"])}
+
+    out = {"serial": [leg(one, thetas._replace(**{
+        k: v[:, s:s + 1] for k, v in thetas._asdict().items()}))
+        for s in range(S)] if serial else []}
+    free, _ = scenario_fleet(torch, n, fan_tree(S, robust_horizon=0), dev,
+                             pinned=True, kkt_method=kkt_method)
+    out["batched"] = leg(free, thetas)
+    robust, _ = scenario_fleet(torch, n, fan_tree(S, robust_horizon=1), dev,
+                               kkt_method=kkt_method)
+    out["robust"] = leg(robust, thetas)
+    theta0 = thetas._replace(**{k: v[0] for k, v in thetas._asdict()
+                                .items()})
+    controls, state = [], None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        u0, state, stats = robust_scenario_controls(
+            ocp, theta0, fan_tree(S, robust_horizon=1),
+            robust.group.solver_options, scenario_options(), state=state)
+        sync()
+        controls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "u0": u0.tolist(),
+                         "iterations": int(stats.iterations),
+                         "converged": bool(stats.converged)})
+    out["robust_controls"] = controls
+    return out
+
+
+def scenario_ab_quality(card, ref) -> dict:
+    """Per leg of :func:`scenario_ab_run`: iterations and ``converged`` of
+    both runs, and the largest z̄ and u0 differences."""
+    pairs = {"serial": list(zip(card["serial"], ref["serial"])),
+             "batched": [(card["batched"], ref["batched"])],
+             "robust": [(card["robust"], ref["robust"])],
+             "robust_controls": list(zip(card["robust_controls"],
+                                         ref["robust_controls"]))}
+    diff = lambda c, r, k: float(np.max(np.abs(np.asarray(c[k])
+                                               - np.asarray(r[k]))))
+    return {name: [{
+        "iterations": [c["iterations"], r["iterations"]],
+        "converged": [c["converged"], r["converged"]],
+        "zbar_max_abs_diff": diff(c, r, "zbar") if "zbar" in c else None,
+        "u0_max_abs_diff": diff(c, r, "u0")} for c, r in rows]
+        for name, rows in pairs.items()}
+
+
+def phase_scenario_ab(torch, dev, smi, ref):
+    """bench.py's --scenario-ab at 4 zones × 8 scenarios on the card
+    (:func:`scenario_ab_run`): in f32 with the launch counters reset just
+    before and read just after, bench.py's identity gate and the robust u0
+    identical across branches; the batched, robust and robust-controls
+    legs in f64 on the card held against the CPU's f64 legs with the plain
+    versions (``ref``): z̄ and u0 within ZBAR_TOL, the same iterations and
+    ``converged`` (the serial rounds are the batched round's 8 branches
+    one by one: the identity gate holds them to it in f32, so their f64
+    run on the card would repeat the batched leg's check).
+    The f32 legs' distance from the f64 reference is reported: at 4 zones
+    the budget-limited solves carry f32 round-off into z̄ and u0 by up to
+    ~5e-3 and ~1e-2 in both packages on the CPU
+    (scripts/scenario_f32_witness.py), so the ZBAR_TOL gate, set for the
+    256-zone mean, is not theirs."""
+    from agentlib_mpc_torch.ops import kkt
+
+    torch.cuda.synchronize()
+    kkt.reset_launch_counts()
+    card = scenario_ab_run(torch, dev, torch.float32, torch.cuda.synchronize)
+    totals = launch_totals(kkt)
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    card64 = scenario_ab_run(torch, dev, torch.float64,
+                             torch.cuda.synchronize, serial=False)
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    S = SCENARIOS
+    identity = max(
+        float(np.max(np.abs(np.asarray(card["batched"]["zbar"])[s]
+                            - np.asarray(card["serial"][s]["zbar"])[0])))
+        for s in range(S))
+    u0 = np.asarray(card["robust"]["u0"])
+    serial_ms = sum(r["ms"] for r in card["serial"])
+    gated = scenario_ab_quality(card64, ref)
+    emit({"phase": "scenario_ab", "zones": SCENARIO_AB_ZONES,
+          "scenarios": S, "dtype": "float32",
+          "per_scenario_ms": {"serial": serial_ms / S,
+                              "batched": card["batched"]["ms"] / S,
+                              "robust": card["robust"]["ms"] / S},
+          "serial_over_batched": serial_ms / card["batched"]["ms"],
+          "identity_zbar_max_abs_diff": identity,
+          "identity_tol": SCENARIO_AB_IDENTITY_TOL,
+          "robust": {k: card["robust"][k] for k in (
+              "iterations", "converged", "na_spread", "local_solves_ok")},
+          "robust_u0_group_identical": bool(np.all(u0 == u0[:, :1])),
+          "robust_controls": [{k: c[k] for k in ("ms", "u0", "iterations",
+                                                 "converged")}
+                              for c in card["robust_controls"]],
+          "reference": "f64 plain on cpu",
+          "reference_seconds": ref["seconds"],
+          "f32_vs_reference": scenario_ab_quality(card, ref),
+          "f64_ms": {"batched": card64["batched"]["ms"],
+                     "robust": card64["robust"]["ms"]},
+          "zbar_tol": ZBAR_TOL, "f64_vs_reference": gated,
+          "launches": totals, "nvidia_smi": smi})
+    check(identity < SCENARIO_AB_IDENTITY_TOL,
+          f"scenario_ab: the uncoupled batched round is {identity} from "
+          f"the serial rounds")
+    check(bool(np.all(u0 == u0[:, :1])),
+          "scenario_ab: the robust u0 differs across branches")
+    for name, rows in gated.items():
+        for k, row in enumerate(rows):
+            check(row["iterations"][0] == row["iterations"][1]
+                  and row["converged"][0] == row["converged"][1],
+                  f"scenario_ab {name} {k}: iterations/converged "
+                  f"{row['iterations']} {row['converged']} (card f64, cpu)")
+            check(max(row["zbar_max_abs_diff"] or 0.0,
+                      row["u0_max_abs_diff"]) <= ZBAR_TOL,
+                  f"scenario_ab {name} {k}: the card's f64 leg is {row} "
+                  f"off the CPU's")
+    return totals
+
+
+def scenario_ab_reference(torch) -> dict:
+    t0 = time.perf_counter()
+    out = scenario_ab_run(torch, "cpu", torch.float64, lambda: None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_scenario_fleet(torch, dev, smi):
+    """The main path's fleet (256 zones, N=10, KKT 92) × a fan of 8
+    scenarios (u_0 shared) through ScenarioFleet: one cold and one warm
+    round in f32 with the launch counters reset just before and read just
+    after (2 048 lanes: every factor at (2048, 92), 6 solves per factor,
+    at most the inner budgets' factors), peak memory, a profiled warm
+    round; the same two rounds in f64 on the card: z̄ within ZBAR_TOL,
+    u0 within ZBAR_TOL in the median and on all but at most 5 % of the
+    zones (the linear fleet's outlier share: the budget-limited solves
+    carry f32 round-off into single lanes, by up to 1.9e-2 in u on
+    fused_slice, and by 2.1e-3 in u0 here in the port on the CPU,
+    scripts/scenario_f32_witness.py), u0 identical across each zone's
+    branches in both types; the spreads max|u − z̄| are reported."""
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.scenario import fan_tree
+
+    n, S = admm_step.N_AGENTS, SCENARIOS
+    tree = fan_tree(S, robust_horizon=1)
+    t0 = time.perf_counter()
+    fleet, ocp = scenario_fleet(torch, n, tree, dev)
+    thetas = scenario_thetas(torch, ocp, n, dev, torch.float32)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    rows = scenario_rounds(torch, fleet, thetas, 2, torch.cuda.synchronize)
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_round = check_fused_launches("scenario_fleet", rows,
+                                     admm_step.COLD_BUDGET,
+                                     admm_step.WARM_BUDGET)
+    M = ocp.n_w + ocp.n_g
+    check(totals["shapes"]["ldl_factor"] == [(n * S, M)],
+          f"scenario_fleet: factor shapes {totals['shapes']['ldl_factor']}, "
+          f"expected ({n * S}, {M})")
+    for k, row in enumerate(rows):
+        u0 = row["u0"]
+        check(bool(torch.equal(u0, u0[:, :1].expand_as(u0))),
+              f"scenario_fleet round {k}: u0 differs across branches")
+        for leaf in (row["state"].w, row["state"].zbar[SCENARIO_ALIAS]):
+            check(bool(torch.isfinite(leaf).all()),
+                  f"scenario_fleet round {k}: non-finite state")
+        st = row["stats"]
+        per_round[k].update(
+            local_solves_ok=bool(st.local_solves_ok),
+            na_spread=float(st.na_spread),
+            lane_quarantined=int(st.lane_quarantined.sum()),
+            quarantined_lanes=int((st.lane_quarantined > 0).sum()))
+    emit({"phase": "scenario_fleet", "zones": n, "scenarios": S,
+          "lanes": n * S, "dtype": "float32", "kkt_size": M,
+          "build_seconds": build_s, "cold_round_ms": rows[0]["ms"],
+          "warm_round_ms": rows[1]["ms"], "per_round": per_round,
+          "launches": totals, "peak_memory_bytes": peak,
+          "nvidia_smi": smi})
+    state = fleet.shift_state(rows[0]["state"])
+    phase_profile(torch, lambda: fleet.step(state, thetas), rows[1]["ms"],
+                  name="scenario_fleet_profile")
+
+    before = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    fleet64, _ = scenario_fleet(torch, n, tree, dev)
+    rows64 = scenario_rounds(torch, fleet64, scenario_thetas(
+        torch, ocp, n, dev, torch.float64), 2, torch.cuda.synchronize)
+    kkt.ldl_factor.launches, kkt.ldl_solve.launches = before
+    quality = []
+    for k, (r32, r64) in enumerate(zip(rows, rows64)):
+        u0_64 = r64["u0"]
+        du = (r32["u0"].double() - u0_64).abs()
+        spreads = [scenario_spread(fleet, r["state"]) for r in (r32, r64)]
+        row = {"round": k,
+               "iterations": [int(r32["stats"].iterations),
+                              int(r64["stats"].iterations)],
+               "zbar_max_abs_diff": float(
+                   (r32["state"].zbar[SCENARIO_ALIAS].double()
+                    - r64["state"].zbar[SCENARIO_ALIAS]).abs().max()),
+               "spread": spreads, "spread_diff": abs(spreads[0] - spreads[1]),
+               "u0_max_abs_diff": float(du.max()),
+               "u0_median_abs_diff": float(du.median()),
+               "zones_u0_over_zbar_tol": int(
+                   (du.amax(dim=(1, 2)) > ZBAR_TOL).sum()),
+               "f64_u0_group_identical": bool(torch.equal(
+                   u0_64, u0_64[:, :1].expand_as(u0_64))),
+               "f64_ms": r64["ms"],
+               "f64_local_solves_ok": bool(r64["stats"].local_solves_ok)}
+        quality.append(row)
+    emit({"phase": "scenario_fleet_quality",
+          "reference": "the same rounds in f64 on the card",
+          "zbar_tol": ZBAR_TOL,
+          "zones_u0_over_tol_share_max": QP_U_OUTLIER_SHARE_TOL,
+          "rounds": quality})
+    for row in quality:
+        check(row["f64_u0_group_identical"],
+              f"scenario_fleet f64 round {row['round']}: u0 differs across "
+              f"branches")
+        check(row["zbar_max_abs_diff"] <= ZBAR_TOL
+              and row["u0_median_abs_diff"] <= ZBAR_TOL
+              and row["zones_u0_over_zbar_tol"]
+              <= QP_U_OUTLIER_SHARE_TOL * n,
+              f"scenario_fleet round {row['round']}: f32 is {row} off f64")
+    return totals
+
+
+def scenario_spread(fleet, state) -> float:
+    """The consensus spread max|u − z̄| over agents, scenarios and the
+    horizon (the slice's spread, per scenario mean)."""
+    u = fleet.group.ocp.unflatten(state.w)["u"][..., 0]
+    return float((u - state.zbar[SCENARIO_ALIAS][None]).abs().max())
+
+
 def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
               count_launches: bool, capture: bool = False, extra_at=(),
               instrument=None):
@@ -2468,6 +2960,8 @@ def reference_run(name: str) -> dict:
         return fused_reference(torch, "zone" if name == "fused_slice"
                                else "linear")
 
+    if name == "scenario_ab":
+        return scenario_ab_reference(torch)
     if name in ("module_ml_mpc", "module_ml_admm"):
         return ml_reference(name)
 
@@ -2874,8 +3368,11 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
             backend._solve_nodes = counted("nodes", backend._solve_nodes)
 
     native_before = cia.solve_cia.native_calls
-    run = drive_mas(torch, rc.minlp_switched_room_configs(
-        backend_type=backend_type), dev, torch.float64, until,
+    configs = rc.minlp_switched_room_configs(backend_type=backend_type)
+    if bb:
+        configs[0]["modules"][1]["optimization_backend"]["bb_options"][
+            "max_nodes"] = MINLP_BB_MAX_NODES
+    run = drive_mas(torch, configs, dev, torch.float64, until,
         ("Controller", "mpc"), ("Plant", "room"), count_launches=True,
         capture=not bb, instrument=instrument)
     native_runs = cia.solve_cia.native_calls - native_before
@@ -2905,6 +3402,7 @@ def phase_module_minlp(torch, dev, smi, backend_type, ref=None):
                                                   for c in calls)}}
     if bb:
         record.update(
+            bb_max_nodes=MINLP_BB_MAX_NODES,
             bb_nodes=[s["bb_nodes"] for s in stats],
             bb_sweeps=[s["bb_sweeps"] for s in stats],
             bb_proven_optimal=[bool(s["bb_proven_optimal"]) for s in stats],
@@ -3346,7 +3844,7 @@ def phase_module_admm_coord(torch, dev, smi, ref):
     """examples/admm_4rooms_coordinator.py's ten agents through LocalMAS on
     the card in f64: the coordinator drives four CooledRoom participants
     (augmented NLPs, KKT 74) and the AHU (a zero-state QP with the shared
-    capacity constraint, KKT 32) through 8 ADMM iterations per round,
+    capacity constraint, KKT 32) through 6 ADMM iterations per round,
     held against the same loop in f64 on the CPU with the plain LDLᵀ."""
     from agentlib_mpc_torch import reference_configs as rc
 
@@ -3650,7 +4148,8 @@ def ml_admm_run(torch, docs, dev, count_launches: bool) -> dict:
     solver = ({"kkt_method": "ldl"} if torch.device(dev).type == "cpu"
               else None)
     run = drive_mas(torch, rc.three_zone_datadriven_configs(
-        docs, solver=solver), dev, getattr(torch, ML_DTYPE), ML_ADMM_UNTIL,
+        docs, max_iterations=ML_ADMM_ITERATIONS, solver=solver), dev,
+        getattr(torch, ML_DTYPE), ML_ADMM_UNTIL,
         (ZONES[0], "admm"), ZONE_SIMULATORS, count_launches=count_launches,
         extra_at=[(aid, "admm") for aid in (*ZONES[1:], "AHU")])
     run["agents"] = four_room_agents(run, (*ZONES, "AHU"))
@@ -4232,7 +4731,8 @@ def main() -> int:
     torch.set_num_threads(len(main_cores))
     cores = {"card_process": main_cores, "cpu_subprocesses": ref_cores}
     refs = References(["quality", "qp_quality", "fused_slice",
-                       "fused_linear"], list(reference_specs()), ref_cores)
+                       "fused_linear", "scenario_ab"],
+                      list(reference_specs()), ref_cores)
     try:
         return run_phases(torch, dev, refs, seconds, t_start, cores)
     finally:
@@ -4273,6 +4773,12 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
                                     smi, "linear", refs.get("fused_linear"))
     by_path["fused_fleet"] = timed("fused_fleet", phase_fused_fleet, torch,
                                    dev, smi)
+    by_path["scenario_tree_kkt"] = timed(
+        "scenario_tree_kkt", phase_scenario_tree_kkt, torch, dev, smi)
+    by_path["scenario_ab"] = timed("scenario_ab", phase_scenario_ab, torch,
+                                   dev, smi, refs.get("scenario_ab"))
+    by_path["scenario_fleet"] = timed("scenario_fleet", phase_scenario_fleet,
+                                      torch, dev, smi)
     # the data-driven phases' references (their trainings and loops)
     # start once the fleet paths, the ones the CPU references slow most,
     # are done

@@ -53,6 +53,21 @@ card's factor in the port), from ``agentlib_mpc_torch/reference_configs.py``
   failed solves, the iterations per solve, and the outcome (the plant
   temperatures; the zones' first moves).
 
+- ``ml_replay`` and ``ml_perturbed`` (``--only ml_replay``): the surrogate
+  room's float32 loop in both packages, each package's solves replayed in
+  both packages' float32 from the same plant and warm state
+  (``warm_state_from_jax``), and the JAX package's states replayed with
+  the warm start's primal scaled by (1 + 1e-6·N(0, 1)), five seeds each,
+  in both packages: failed solves and iterations. With ``--fixture`` the
+  JAX package's state before its solve at t = 300 s is written there
+  with the surrogate's document (``tests/data/torch_ml_room_f32_300.json``).
+- ``ml_trace`` (``--only ml_replay``): from that stored state, both
+  packages' NARX derivatives in float32 against float64, their iterates
+  after 1..10 iterations in both types, and which of 17 starts (the
+  stored one and 16 with the warm primal scaled by 1 + 1e-6·N(0, 1))
+  converge in the port's backend, the JAX package's backend and the JAX
+  package's bare ``solve_nlp``.
+
 ``--only fixed_3900`` runs that program alone (a few minutes); ``--only
 mhe`` the MHE example's four loops and the ``mhe_qp_iterations`` line;
 ``--only ml`` the ``ml_loop`` lines (about 3 minutes on a 4-core CPU).
@@ -427,30 +442,42 @@ def train_ml_surrogates(directory: str) -> dict:
     return paths
 
 
-def ml_loop(pkg: str, dtype: str, example: str, directory: str) -> dict:
-    """One data-driven example in one package and type, with the
-    surrogates of :func:`train_ml_surrogates`."""
-    import numpy as np
+def _ml_doc(directory: str, key: str) -> str:
+    with open(os.path.join(directory, f"{key}.json")) as fh:
+        return fh.read()
 
+
+#: perturbed starts per solve of the surrogate room's replay
+ML_PERTURBED_SEEDS = 5
+#: the data-driven examples' solver, both packages (the card's factor)
+ML_SOLVER = {"max_iter": 60, "kkt_method": "ldl"}
+
+
+def ml_mpc_backend(pkg: str, dtype: str, directory: str):
+    """The surrogate room's ``jax_ml`` backend in one package and type
+    (examples/ml_mpc_one_room.py's, horizon 10), with the surrogate of
+    :func:`train_ml_surrogates`, and the converter of a JAX warm state
+    into it."""
     from agentlib_mpc_torch import reference_configs as rc
 
-    def doc(key):
-        with open(os.path.join(directory, f"{key}.json")) as fh:
-            return fh.read()
-
-    solver = {"max_iter": 60, "kkt_method": "ldl"}
     if pkg == "jax":
         setup_jax(dtype == "f64")
+        import jax.numpy as jnp
+
         from agentlib_mpc_tpu.backends.backend import (
             VariableReference,
             create_backend,
         )
         from agentlib_mpc_tpu.ml import load_serialized_model
-        from agentlib_mpc_tpu.runtime.mas import LocalMAS
         from examples import ml_mpc_one_room as ex_mpc
-        from examples import three_zone_datadriven_admm as ex_admm
 
+        model = {"class": ex_mpc.SurrogateRoom,
+                 "ml_model_sources": [load_serialized_model(
+                     _ml_doc(directory, "room"))]}
         kw = {}
+        jdt = jnp.float32 if dtype == "f32" else jnp.float64
+        conv = lambda w: {k: (v if k == "cold" else jnp.asarray(v, jdt))
+                          for k, v in w.items()}
     else:
         import torch
 
@@ -458,26 +485,42 @@ def ml_loop(pkg: str, dtype: str, example: str, directory: str) -> dict:
             VariableReference,
             create_backend,
         )
-        from agentlib_mpc_torch.runtime.mas import LocalMAS
+        from agentlib_mpc_torch.utils.convert import warm_state_from_jax
 
-        kw = {"device": "cpu", "dtype": getattr(torch, {
-            "f32": "float32", "f64": "float64"}[dtype])}
+        model = rc.ml_mpc_backend_config(_ml_doc(directory, "room"))["model"]
+        tdt = getattr(torch, {"f32": "float32", "f64": "float64"}[dtype])
+        kw = {"device": "cpu", "dtype": tdt}
+        conv = lambda w: warm_state_from_jax(w, "cpu", tdt)
+    backend = create_backend({"type": "jax_ml", "model": model,
+                              "solver": ML_SOLVER}, **kw)
+    backend.setup_optimization(
+        VariableReference(states=["T"], controls=["Q"], inputs=["T_upper"],
+                          parameters=["s_T", "r_Q"]),
+        time_step=rc.ML_DT, prediction_horizon=10)
+    return backend, conv
+
+
+def ml_loop(pkg: str, dtype: str, example: str, directory: str,
+            capture: str | None = None) -> dict:
+    """One data-driven example in one package and type, with the
+    surrogates of :func:`train_ml_surrogates`; with ``capture`` (a path)
+    every solve of the surrogate room's loop is pickled there with its
+    plant state and the backend's warm state before it."""
+    import numpy as np
+
+    from agentlib_mpc_torch import reference_configs as rc
+
+    solver = ML_SOLVER
     out = {"line": "ml_loop", "example": example, "package": pkg,
            "dtype": dtype}
     if example == "ml_mpc":
-        model = ({"class": ex_mpc.SurrogateRoom,
-                  "ml_model_sources": [load_serialized_model(doc("room"))]}
-                 if pkg == "jax" else
-                 rc.ml_mpc_backend_config(doc("room"))["model"])
-        backend = create_backend({"type": "jax_ml", "model": model,
-                                  "solver": solver}, **kw)
-        backend.setup_optimization(
-            VariableReference(states=["T"], controls=["Q"],
-                              inputs=["T_upper"],
-                              parameters=["s_T", "r_Q"]),
-            time_step=rc.ML_DT, prediction_horizon=10)
-        T, temps, stats = 297.5, [], []
+        backend, _conv = ml_mpc_backend(pkg, dtype, directory)
+        T, temps, stats, caps = 297.5, [], [], []
         for k in range(20):
+            if capture:
+                caps.append({"now": k * rc.ML_DT, "T": T, "warm": {
+                    key: (v if key == "cold" else np.asarray(v))
+                    for key, v in backend.warm_state().items()}})
             res = backend.solve(k * rc.ML_DT, {"T": T})
             T = rc.ml_room_plant_step(T, res["u0"]["Q"])
             temps.append(T)
@@ -485,8 +528,25 @@ def ml_loop(pkg: str, dtype: str, example: str, directory: str) -> dict:
         out.update(failed_at=[s["time"] for s in stats if not s["success"]],
                    iterations=[s["iterations"] for s in stats],
                    temperatures_K=temps)
+        if capture:
+            with open(capture, "wb") as fh:
+                pickle.dump(caps, fh)
         return out
-    docs = [doc(f"zone{i}") for i in range(rc.ZONES_N)]
+    if pkg == "jax":
+        setup_jax(dtype == "f64")
+        from agentlib_mpc_tpu.ml import load_serialized_model
+        from agentlib_mpc_tpu.runtime.mas import LocalMAS
+        from examples import three_zone_datadriven_admm as ex_admm
+
+        kw = {}
+    else:
+        import torch
+
+        from agentlib_mpc_torch.runtime.mas import LocalMAS
+
+        kw = {"device": "cpu", "dtype": getattr(torch, {
+            "f32": "float32", "f64": "float64"}[dtype])}
+    docs = [_ml_doc(directory, f"zone{i}") for i in range(rc.ZONES_N)]
     if pkg == "jax":
         configs = ex_admm.agent_configs(
             [load_serialized_model(d) for d in docs])
@@ -516,6 +576,211 @@ def ml_loop(pkg: str, dtype: str, example: str, directory: str) -> dict:
     return out
 
 
+def ml_replay(pkg: str, capture: str, directory: str,
+              seeds: int = 0) -> dict:
+    """Every float32 surrogate-room solve of one package's loop (pickled
+    by :func:`ml_loop`) replayed in ``pkg``'s float32 from the same plant
+    state and warm state: failed solves, iterations and first controls.
+    With ``seeds`` > 0 each solve instead starts ``seeds`` times from the
+    warm state with its primal scaled by (1 + 1e-6·N(0, 1)) (numpy seed
+    0): the failed (time, seed) pairs and the iterations per time."""
+    import numpy as np
+
+    with open(capture, "rb") as fh:
+        caps = pickle.load(fh)
+    backend, conv = ml_mpc_backend(pkg, "f32", directory)
+    rng = np.random.default_rng(0)
+    rows = []
+    for c in caps:
+        for seed in range(max(seeds, 1)):
+            warm = dict(c["warm"])
+            if seeds:
+                w = np.asarray(warm["w"], dtype=np.float64)
+                warm["w"] = (w * (1.0 + 1e-6 * rng.standard_normal(
+                    w.shape))).astype(np.float32)
+            backend.set_warm_state(conv(warm))
+            res = backend.solve(c["now"], {"T": c["T"]})
+            rows.append({"now": c["now"], "seed": seed, "success": bool(
+                res["stats"]["success"]),
+                "iterations": int(res["stats"]["iterations"]),
+                "Q0": float(res["u0"]["Q"])})
+    out = {"line": "ml_perturbed" if seeds else "ml_replay",
+           "package": pkg,
+           "states_from": os.path.basename(capture).split("_")[0]}
+    if seeds:
+        out.update(seeds=seeds, x0_rel=1e-6, solves=len(rows),
+                   failed=[[r["now"], r["seed"]] for r in rows
+                           if not r["success"]],
+                   iterations={str(c["now"]): [r["iterations"] for r in rows
+                                               if r["now"] == c["now"]]
+                               for c in caps})
+        return out
+    out.update(failed_at=[r["now"] for r in rows if not r["success"]],
+               iterations=[r["iterations"] for r in rows],
+               Q0=[r["Q0"] for r in rows])
+    return out
+
+
+#: the surrogate room's solve the ``--fixture`` of ``--only ml_replay``
+#: keeps: the JAX package's float32 loop solves it in 53 of 60 iterations
+ML_FIXTURE_TIME = 300.0
+
+
+def write_ml_fixture(path: str, capture: str, doc_path: str) -> None:
+    """The surrogate (its JSON document) and the JAX package's float32
+    plant and warm state before the solve at :data:`ML_FIXTURE_TIME`, as
+    JSON at ``path``."""
+    with open(capture, "rb") as fh:
+        caps = pickle.load(fh)
+    c = next(c for c in caps if c["now"] == ML_FIXTURE_TIME)
+    with open(doc_path) as fh:
+        doc = json.load(fh)
+    warm = {k: (bool(v) if k == "cold" else
+                [float(x) for x in v.reshape(-1)])
+            for k, v in c["warm"].items()}
+    with open(path, "w") as fh:
+        json.dump({"now": c["now"], "T": float(c["T"]), "warm": warm,
+                   "surrogate": doc}, fh)
+
+
+#: the surrogate room's stored state (``--only ml_replay --fixture``)
+ML_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_ml_room_f32_300.json")
+#: interior-point iterations ``ml_trace`` follows both packages' iterates
+ML_TRACE_STEPS = 10
+#: perturbed starts (1e-6 relative on the warm primal) of ``ml_trace``
+ML_TRACE_STARTS = 16
+
+
+def _ml_step_arguments(backend, state: dict, run_step: bool):
+    """What a backend's solve at the fixture's time hands its step (the
+    backend's own input assembly); the JAX package's step is not run."""
+    class Captured(Exception):
+        pass
+
+    step, caught = backend._step, {}
+
+    def capture(*args):
+        caught["args"] = args
+        if not run_step:
+            raise Captured
+        return step(*args)
+
+    backend._step = capture
+    try:
+        backend.solve(state["now"], {"T": state["T"]})
+    except Captured:
+        pass
+    backend._step = step
+    return caught["args"]
+
+
+def ml_trace(path: str) -> dict:
+    """From the JAX package's float32 state before the surrogate room's
+    solve at t = 300 s (the fixture): both packages' NARX derivatives in
+    f32 against f64, their iterates after 1..ML_TRACE_STEPS iterations in
+    f32 and f64, and the outcomes of ML_TRACE_STARTS + 1 starts (the
+    stored one and ones with the warm primal scaled by 1 + 1e-6·N(0, 1),
+    numpy seed 0) in the port's backend, the JAX package's backend and the
+    JAX package's bare ``solve_nlp`` (another compiled program)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from torch.func import hessian, jacrev
+
+    from agentlib_mpc_torch.ops.solver import solve_nlp
+    from agentlib_mpc_tpu.ops.solver import solve_nlp as jsolve
+
+    with open(path) as fh:
+        state = json.load(fh)
+    directory = tempfile.mkdtemp(prefix="ml_trace_")
+    with open(os.path.join(directory, "room.json"), "w") as fh:
+        json.dump(state["surrogate"], fh)
+    warm = {k: (v if k == "cold" else np.asarray(v, np.float32)
+                .astype(np.float64)) for k, v in state["warm"].items()}
+    rng = np.random.default_rng(0)
+    starts = [warm["w"]] + [warm["w"] * (1.0 + 1e-6 * rng.standard_normal(
+        warm["w"].shape)) for _ in range(ML_TRACE_STARTS)]
+
+    def outcomes(backend, conv):
+        ok = []
+        for w0 in starts:
+            backend.set_warm_state(conv({**warm, "w": w0}))
+            ok.append(bool(backend.solve(state["now"], {"T": state["T"]})
+                           ["stats"]["success"]))
+        return ok
+
+    out = {"line": "ml_trace", "time": state["now"], "starts": len(starts),
+           "outcomes": {}}
+    port, jx = {}, {}
+    for dt in ("f32", "f64"):
+        backend, conv = ml_mpc_backend("torch", dt, directory)
+        backend.set_warm_state(conv(warm))
+        (x0, u_prev, past, d_traj, p, x_lb, x_ub, u_lb, u_ub, ml_params, w,
+         y, z, mu0, t0) = _ml_step_arguments(backend, state, True)
+        th = backend._theta0._replace(
+            x0=x0, u_prev=u_prev, past=past, d_traj=d_traj, p=p, x_lb=x_lb,
+            x_ub=x_ub, u_lb=u_lb, u_ub=u_ub, t0=t0, ml_params=ml_params)
+        nlp, opts = backend.ocp.nlp, backend.solver_options
+        lb, ub = backend.ocp.bounds(th)
+        lag = lambda ww: (nlp.f(ww, th) + (y * nlp.g(ww, th)).sum()
+                          + (z * nlp.h(ww, th)).sum())
+        port[dt] = {k: v.double().numpy() for k, v in {
+            "gf": jacrev(lambda ww: nlp.f(ww, th))(w),
+            "Jg": jacrev(lambda ww: nlp.g(ww, th))(w),
+            "H": hessian(lag)(w)}.items()}
+        port[dt]["w"] = [solve_nlp(nlp, w, th, lb, ub, opts, y0=y, z0=z,
+                                   mu0=mu0, max_iter=k).w.double().numpy()
+                         for k in range(1, ML_TRACE_STEPS + 1)]
+        if dt == "f32":
+            out["outcomes"]["torch_backend"] = outcomes(backend, conv)
+    for dt in ("f32", "f64"):
+        backend, conv = ml_mpc_backend("jax", dt, directory)
+        backend.set_warm_state(conv(warm))
+        (x0, u_prev, past, d_traj, p, x_lb, x_ub, u_lb, u_ub, ml_params, w,
+         y, z, mu0, t0) = _ml_step_arguments(backend, state, False)
+        ocp = backend.ocp
+        nlp, opts = ocp.nlp, backend.solver_options
+        th = ocp.default_params(
+            x0=x0, u_prev=u_prev, past=past, d_traj=d_traj, p=p, x_lb=x_lb,
+            x_ub=x_ub, u_lb=u_lb, u_ub=u_ub, t0=t0, ml_params=ml_params)
+        lb, ub = ocp.bounds(th)
+        lag = lambda ww: (nlp.f(ww, th) + jnp.sum(y * nlp.g(ww, th))
+                          + jnp.sum(z * nlp.h(ww, th)))
+        solve_k = jax.jit(lambda k: jsolve(nlp, w, th, lb, ub, opts, y0=y,
+                                           z0=z, mu0=mu0, max_iter=k).w)
+        jx[dt] = {
+            "gf": np.asarray(jax.jit(jax.grad(lambda ww: nlp.f(ww, th)))(w),
+                             np.float64),
+            "Jg": np.asarray(jax.jit(jax.jacrev(
+                lambda ww: nlp.g(ww, th)))(w), np.float64),
+            "H": np.asarray(jax.jit(jax.hessian(lag))(w), np.float64),
+            "w": [np.asarray(solve_k(jnp.asarray(k)), np.float64)
+                  for k in range(1, ML_TRACE_STEPS + 1)]}
+        if dt == "f32":
+            bare = jax.jit(lambda w0: jsolve(nlp, w0, th, lb, ub, opts, y0=y,
+                                             z0=z, mu0=mu0).stats.success)
+            out["outcomes"]["jax_solve_nlp"] = [
+                bool(bare(jnp.asarray(w0, jnp.float32))) for w0 in starts]
+            out["outcomes"]["jax_backend"] = outcomes(backend, conv)
+    rel = lambda a, b: float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+    out["derivatives"] = {key: {
+        "torch_f32_vs_f64": rel(port["f32"][key], port["f64"][key]),
+        "jax_f32_vs_f64": rel(jx["f32"][key], jx["f64"][key]),
+        "torch_f64_vs_jax_f64": rel(port["f64"][key], jx["f64"][key])}
+        for key in ("gf", "Jg", "H")}
+    pairs = {"torch_f32_vs_f64": (port["f32"], port["f64"]),
+             "jax_f32_vs_f64": (jx["f32"], jx["f64"]),
+             "torch_f32_vs_jax_f32": (port["f32"], jx["f32"]),
+             "torch_f64_vs_jax_f64": (port["f64"], jx["f64"])}
+    out["iterates"] = {name: [rel(a["w"][k], b["w"][k])
+                              for k in range(ML_TRACE_STEPS)]
+                       for name, (a, b) in pairs.items()}
+    out["converged"] = {k: sum(v) for k, v in out["outcomes"].items()}
+    os.unlink(os.path.join(directory, "room.json"))
+    os.rmdir(directory)
+    return out
+
+
 def ml_iterations(lines) -> dict:
     """Failed solves and iterations per solve of the ``ml_loop`` lines,
     by example, package and type, on a line of their own."""
@@ -538,7 +803,13 @@ def ml_iterations(lines) -> dict:
 def child(argv):
     kind = argv[0]
     if kind == "ml_loop":
-        out = ml_loop(argv[1], argv[2], argv[3], argv[4])
+        out = ml_loop(argv[1], argv[2], argv[3], argv[4],
+                      argv[5] if len(argv) > 5 else None)
+    elif kind == "ml_trace":
+        out = ml_trace(argv[1])
+    elif kind == "ml_replay":
+        out = ml_replay(argv[1], argv[2], argv[3],
+                        int(argv[4]) if len(argv) > 4 else 0)
     elif kind == "loop":
         out = run_loop(argv[1], argv[2], argv[3],
                        argv[4] if len(argv) > 4 else None)
@@ -598,10 +869,13 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--out")
     parser.add_argument("--fixture", help="write the fixed program's "
-                        "inputs at t = 3 900 s there (JSON)")
+                        "inputs at t = 3 900 s there (JSON); with --only "
+                        "ml_replay the surrogate room's JAX float32 state "
+                        "before its solve at t = 300 s")
     parser.add_argument("--starts", type=int, default=80,
                         help="perturbed starts of the fixed program")
-    parser.add_argument("--only", choices=("fixed_3900", "mhe", "ml"),
+    parser.add_argument("--only", choices=("fixed_3900", "mhe", "ml",
+                                           "ml_replay"),
                         help="run only that line, or only the MHE "
                         "example's loops")
     args = parser.parse_args()
@@ -640,6 +914,25 @@ def main() -> int:
                               for job in ml_jobs[start:start + 4]])
         lines.append(ml_iterations(lines))
         for path in paths.values():
+            os.unlink(path)
+    elif args.only == "ml_replay":
+        paths = train_ml_surrogates(tmp)
+        ml_caps = {pkg: os.path.join(tmp, f"{pkg}_ml_f32.pkl")
+                   for pkg in ("jax", "torch")}
+        lines += collect([spawn(["ml_loop", pkg, "f32", "ml_mpc", tmp,
+                                 ml_caps[pkg]], env)
+                          for pkg in ("jax", "torch")])
+        lines += collect([spawn(["ml_replay", pkg, ml_caps[src], tmp], env)
+                          for src in ("jax", "torch")
+                          for pkg in ("jax", "torch")])
+        lines += collect([spawn(["ml_replay", pkg, ml_caps["jax"], tmp,
+                                 str(ML_PERTURBED_SEEDS)], env)
+                          for pkg in ("jax", "torch")])
+        if args.fixture:
+            write_ml_fixture(args.fixture, ml_caps["jax"], paths["room"])
+        lines += collect([spawn(["ml_trace", args.fixture or ML_FIXTURE],
+                                env)])
+        for path in (*paths.values(), *ml_caps.values()):
             os.unlink(path)
     else:
         lines += collect([spawn(fixed, env)])

@@ -129,15 +129,23 @@ def test_input_predictor_matches():
 
 
 def test_forecast_ensembles_wait_for_the_scenario_slice():
+    """The forecast-ensemble hooks came with the scenario-tree slice: they
+    no longer raise, and draw the JAX package's ensembles
+    (tests/test_torch_scenario_tree.py holds them against the JAX
+    package's bit for bit)."""
+    import pandas as pd
+
     from agentlib_mpc_torch.modules.input_prediction import InputPredictor
     from agentlib_mpc_torch.utils.try_format import try_forecast_ensemble
 
-    p = InputPredictor({"module_id": "w", "data": {"a": {0.0: 1.0}}},
+    p = InputPredictor({"module_id": "w", "data": {"a": {0.0: 1.0,
+                                                         600.0: 2.0}}},
                        _Host())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        p.get_prediction_ensemble_at_time(0.0, n_scenarios=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        try_forecast_ensemble(None, "t", 0.0, 4, 2)
+    times, vals = p.get_prediction_ensemble_at_time(0.0, n_scenarios=2)["a"]
+    assert np.shape(vals) == (2, len(times))
+    df = pd.DataFrame({"t": np.linspace(280.0, 290.0, 8)},
+                      index=np.arange(8) * 3600.0)
+    assert try_forecast_ensemble(df, "t", 0.0, 4, 2).shape == (2, 4)
 
 
 @pytest.mark.parametrize("method,offset", [("linear", 0.0),

@@ -392,13 +392,23 @@ def test_deferred_backend_features_name_their_item(one_room):
         scenario_engine,
     )
 
+    from agentlib_mpc_torch.scenario import ScenarioFleet, fan_tree
+
     backend = one_room["port"]["module"].backend
     with pytest.raises(NotImplementedError, match="item 5"):
         backend.problem_fingerprint()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        scenario_engine(backend.ocp, None, backend.solver_options)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        robust_scenario_controls(backend.ocp, None, None)
+    # the scenario helpers (item 4) came with the scenario-tree slice: one
+    # cached engine per structure, device and dtype
+    tree = fan_tree(2, robust_horizon=1)
+    engine = scenario_engine(backend.ocp, tree, backend.solver_options,
+                             device="cpu", dtype=torch.float64)
+    assert isinstance(engine, ScenarioFleet)
+    assert engine.device == torch.device("cpu")
+    assert scenario_engine(backend.ocp, tree, backend.solver_options,
+                           device="cpu", dtype=torch.float64) is engine
+    assert scenario_engine(backend.ocp, tree, backend.solver_options,
+                           device="cpu", dtype=torch.float32) is not engine
+    assert callable(robust_scenario_controls)
 
 
 def test_float32_loop_keeps_the_float64_metrics(one_room):
