@@ -269,12 +269,25 @@ class OptimizationBackend:
         return True, ()
 
     def problem_fingerprint(self):
-        """Structural fingerprint of the transcribed problem: the
-        admission key of the serving dispatch plane, which comes with
-        ROADMAP Queue 1 item 5."""
-        raise NotImplementedError(
-            "problem_fingerprint needs the serving slice, which is not "
-            "ported yet (ROADMAP Queue 1 item 5)")
+        """Structural fingerprint of the transcribed problem this backend
+        solves: the admission key of the serving plane
+        (``agentlib_mpc_torch/serving/``); an agent process asks its
+        backend for it and hands it to
+        :meth:`~agentlib_mpc_torch.serving.plane.ServingPlane.join`
+        bucketing. Available once ``setup_optimization`` has transcribed
+        the OCP (the backends set ``self.ocp``); raises otherwise.
+        Memoized per OCP object by the serving layer."""
+        ocp = getattr(self, "ocp", None)
+        if ocp is None:
+            raise RuntimeError(
+                "problem_fingerprint() needs a transcribed OCP — call "
+                "setup_optimization first (or this backend type does "
+                "not expose one)")
+        from agentlib_mpc_torch.serving.fingerprint import (
+            tenant_fingerprint,
+        )
+
+        return tenant_fingerprint(ocp)
 
     # -- durable warm-start state (beyond reference: its warm starts die
     #    with the process, ``casadi_utils.py:94-101``) ------------------------

@@ -11,7 +11,9 @@ Port of the two routing certifiers of ``agentlib_mpc_tpu/lint/jaxpr``:
   :class:`~agentlib_mpc_torch.ops.stagejac.StageJacobianPlan`.
 
 Both are domains over one abstract interpreter (:mod:`.interp`) that walks
-the aten graph ``make_fx`` records in fake mode.
+the aten graph ``make_fx`` records in fake mode. :mod:`.fingerprint`
+digests the same graphs, with both certificates, into the serving plane's
+compile-cache key (:func:`structural_fingerprint`).
 """
 
 from agentlib_mpc_torch.lint.fx.interp import (
@@ -19,6 +21,11 @@ from agentlib_mpc_torch.lint.fx.interp import (
     Domain,
     TraceError,
     run_nlp_function,
+)
+from agentlib_mpc_torch.lint.fx.fingerprint import (
+    StructuralFingerprint,
+    graph_digest,
+    structural_fingerprint,
 )
 from agentlib_mpc_torch.lint.fx.lq import (
     NONPOLY,
@@ -33,5 +40,7 @@ from agentlib_mpc_torch.lint.fx.structure import (
 )
 
 __all__ = ["AVal", "DegreeDomain", "DependenceDomain", "Domain",
-           "LQCertificate", "NONPOLY", "StructureCertificate", "TraceError",
-           "certify_lq", "certify_stage_structure", "run_nlp_function"]
+           "LQCertificate", "NONPOLY", "StructuralFingerprint",
+           "StructureCertificate", "TraceError", "certify_lq",
+           "certify_stage_structure", "graph_digest", "run_nlp_function",
+           "structural_fingerprint"]

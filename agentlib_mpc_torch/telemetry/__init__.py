@@ -3,15 +3,17 @@
 The part of ``agentlib_mpc_tpu/telemetry/`` that the ported call sites
 use — the data broker's counters and dispatch histogram, the actuation
 guard's level gauge and counters, the backends' solver families, the
-``backend.solve`` span and the ADMM residual gauges
-(``ops.admm.record_residuals``) — with the JAX package's names, labels and
+``backend.solve`` span, the ADMM residual gauges
+(``ops.admm.record_residuals``) and the serving plane's families
+(:func:`serving_metrics`) — with the JAX package's names, labels and
 semantics (``metrics().get`` returns a counter's or gauge's value and a
 histogram's observation count). Every write sits behind :func:`enabled`
 (on by default; ``configure(enabled=False)`` turns writes into no-ops).
-The exporters, the span aggregates, the flight-recorder journal (off by
-default in the JAX package, so :func:`journal_event` records nothing
-here), the profiler and the rest of the telemetry tooling come with the
-telemetry slice (ROADMAP Queue 1 item 6).
+The flight-recorder journal (:mod:`.journal`) records only while one is
+installed (:func:`enable_journal`), as in the JAX package; the SLO
+tracker is :mod:`.slo`. The exporters, the span aggregates, the profiler
+and the rest of the telemetry tooling come with the telemetry slice
+(ROADMAP Queue 1 item 6).
 
     from agentlib_mpc_torch import telemetry
 
@@ -28,11 +30,15 @@ import threading
 import time
 from typing import Iterable, Optional
 
+from agentlib_mpc_torch.telemetry import journal as _journal_mod
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "SpanRecord",
     "ITERATION_BUCKETS", "LATENCY_BUCKETS_S",
     "metrics", "recorder", "span", "configure", "enabled", "counter",
-    "gauge", "histogram", "solver_metrics", "reset", "journal_event",
+    "gauge", "histogram", "solver_metrics", "serving_metrics", "reset",
+    "enable_journal", "disable_journal", "journal_active",
+    "journal_event", "journal_set_round",
 ]
 
 #: default histogram buckets for latencies in seconds
@@ -272,14 +278,65 @@ def solver_metrics(registry: "MetricsRegistry | None" = None) -> dict:
     }
 
 
+def serving_metrics(registry: "MetricsRegistry | None" = None) -> dict:
+    """The serving plane's metric families (the JAX package's names and
+    help texts): requests, rounds, solves, active, queue_depth,
+    round_seconds. ``serving_solves_total`` is labelled by the guard
+    ``action`` (actuate/replay/hold/fallback), so availability (actuated
+    over delivered) is computable from telemetry alone. The cache,
+    admission and health layers declare their own families where they
+    write them."""
+    reg = registry or DEFAULT
+    return {
+        "requests": reg.counter(
+            "serving_requests_total",
+            "solve requests submitted to the serving plane"),
+        "rounds": reg.counter(
+            "serving_rounds_total", "fused rounds dispatched"),
+        "solves": reg.counter(
+            "serving_solves_total", "per-tenant solve results delivered"),
+        "active": reg.gauge(
+            "serving_active_tenants", "admitted tenants per bucket"),
+        "queue_depth": reg.gauge(
+            "serving_queue_depth",
+            "pending solve requests at last drain"),
+        "round_seconds": reg.histogram(
+            "serving_round_seconds",
+            "wall-clock seconds per serve_round call"),
+    }
+
+
 def reset() -> None:
-    """Clear recorded values and spans (declared families stay)."""
+    """Clear recorded values and spans (declared families stay; an
+    installed journal stays installed)."""
     DEFAULT.reset()
     RECORDER.clear()
 
 
-def journal_event(etype: str, **fields) -> None:
-    """The flight-recorder seam of the JAX package, whose journal is off
-    unless installed; the port has no journal yet, so nothing is
-    recorded."""
-    return None
+def enable_journal(path: str, **kwargs):
+    """Install the process-global flight-recorder journal at ``path``
+    (:class:`~agentlib_mpc_torch.telemetry.journal.Journal`)."""
+    return _journal_mod.enable(path, **kwargs)
+
+
+def disable_journal() -> None:
+    """Close and uninstall the global journal (the file stays)."""
+    _journal_mod.disable()
+
+
+def journal_active():
+    """The installed journal, or None while journaling is off."""
+    return _journal_mod.active()
+
+
+def journal_event(etype: str, **fields) -> "int | None":
+    """Record one typed event into the global journal; a no-op (None)
+    while no journal is installed."""
+    if _journal_mod._GLOBAL is None:
+        return None
+    return _journal_mod.record(etype, **fields)
+
+
+def journal_set_round(round_: "int | None") -> None:
+    """Stamp later journal events with this control round."""
+    _journal_mod.set_round(round_)

@@ -40,7 +40,11 @@ an ML backend (its model and its device copy) through
 conversion (both packages read and write the same JSON). A scenario
 fleet's state (``ScenarioState``) comes in through
 :func:`scenario_state_from_jax`, checked against the fleet it continues in
-by :func:`load_scenario_state`.
+by :func:`load_scenario_state`. A whole serving plane (occupancy and slot
+maps, each bucket's engine state, theta batch and mask, guard ladders,
+the health and SLO ledgers, queue carryover, round counters) comes out of
+the JAX package's ``ServingPlane`` through :func:`serving_state_from_jax`
+and into the port's through :func:`load_serving_state`.
 """
 
 from __future__ import annotations
@@ -369,4 +373,103 @@ def load_scenario_state(fleet, state, dtype: torch.dtype = torch.float32):
             raise ValueError(
                 f"state's {name} is {tuple(have[name].shape)}, the fleet "
                 f"needs {shape}")
+    return out
+
+
+def _host_tree(obj):
+    """Another framework's nested NamedTuples, dicts, tuples and arrays as
+    the same nesting with numpy leaves (named tuples as field dicts)."""
+    if obj is None:
+        return None
+    if hasattr(obj, "_fields"):
+        return {k: _host_tree(getattr(obj, k)) for k in obj._fields}
+    if isinstance(obj, Mapping):
+        return {k: _host_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_host_tree(v) for v in obj)
+    return np.asarray(obj)
+
+
+def serving_state_from_jax(plane) -> dict:
+    """Everything a serving plane of another framework (the JAX package's
+    ``ServingPlane``) carries between rounds, as plain data with numpy
+    arrays: per bucket the capacity, slot map, rounds served and its
+    engine state, theta batch and mask; the evicted tenants; every
+    guard's ladder and the health ledger; the SLO ledger; the pending
+    queue; the round counters. The layout is the port's plane checkpoint
+    manifest, so :func:`load_serving_state` continues it in the port."""
+    import time
+
+    buckets, arrays = [], []
+    for key, bucket in plane._buckets.items():
+        if not bucket.tenants:
+            continue
+        buckets.append({"digest": key.digest,
+                        "capacity": int(bucket.capacity),
+                        "slots": list(bucket.slots),
+                        "rounds_served": int(bucket.rounds_served),
+                        "scenarios": int(getattr(bucket, "n_scenarios",
+                                                 1))})
+        arrays.append({"state": _host_tree(bucket.state),
+                       "theta": _host_tree(bucket.theta_batch),
+                       "mask": np.asarray(bucket.mask, dtype=bool)})
+    health = getattr(plane, "_health", None)
+    return {
+        "buckets": buckets,
+        "arrays": arrays,
+        "evicted": {tid: key.digest for tid, key in plane._evicted.items()},
+        "guards": {tid: g.snapshot() for tid, g in plane._guards.items()},
+        "health": health.snapshot() if health is not None else None,
+        "slo": plane.slo.snapshot(),
+        "queue": plane.queue.snapshot(time.monotonic()),
+        "rounds": int(plane.rounds),
+        "served_rounds": int(plane.served_rounds),
+    }
+
+
+def load_serving_state(plane, state: Mapping, specs):
+    """Continue another framework's serving plane (the plain data of
+    :func:`serving_state_from_jax`) in the port's ``plane``, which must be
+    empty: buckets rebuilt through its compile cache at the recorded
+    capacities, the slot maps, engine states, theta batches and masks
+    placed on its device in its dtype (each bucket's structure and leaf
+    shapes checked against the rebuilt bucket's), the guard ladders, the
+    health and SLO ledgers, the queue and the round counters. ``specs``
+    are the tenants' problem definitions in the port (``TenantSpec`` per
+    tenant). The JAX package's bucket digests are not the port's; every
+    tenant of a bucket must fingerprint into one port bucket. Returns
+    ``(buckets, per_tenant_s, requeued)``."""
+    from torch.utils._pytree import tree_flatten
+
+    from agentlib_mpc_torch.serving.checkpoint import restore_into
+
+    if plane._tenant_bucket or plane._buckets:
+        raise ValueError("load_serving_state needs an EMPTY plane; this "
+                         f"one has {len(plane._tenant_bucket)} tenants")
+
+    def signature(tree):
+        leaves, spec = tree_flatten(tree)
+        return spec, [tuple(t.shape) for t in leaves]
+
+    def load_arrays(templates):
+        out = []
+        for tmpl, data in zip(templates, state["arrays"]):
+            got = {k: _named_from_numpy(type(tmpl[k]), data[k],
+                                        plane.device, plane.dtype)
+                   for k in ("state", "theta")}
+            got["mask"] = torch.as_tensor(np.asarray(data["mask"]))
+            if signature(got) != signature(tmpl):
+                raise ValueError(
+                    f"carried bucket state {signature(got)[1]} does not "
+                    f"fit the port's bucket {signature(tmpl)[1]}")
+            out.append(got)
+        return out
+
+    manifest = {k: state.get(k) for k in ("buckets", "evicted", "guards",
+                                          "health", "slo", "queue",
+                                          "rounds")}
+    out = restore_into(plane, manifest, specs, load_arrays,
+                       check_digests=False)
+    plane.served_rounds = int(state.get("served_rounds",
+                                        plane.served_rounds))
     return out

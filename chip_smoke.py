@@ -137,7 +137,27 @@ non-zero without printing a result:
               rounds in f64 on the card: z̄ within ZBAR_TOL, u0 within
               ZBAR_TOL in the median and on all but 5 % of the zones,
               u0 identical across each zone's branches in both types.
-18. module_one_room — the module path: ``LocalMAS`` over the two-agent
+18. serve — the serving plane (``agentlib_mpc_torch/serving``) under
+              ``bench.py --serve``'s workload built from the port: 256
+              ``LinearRCZone`` tenants coupled on ``power``, membership
+              from ``churn_schedule(0, 256, 16)`` (a round-0 cohort of
+              128), the slice's solver options, 5 ADMM iterations at
+              ρ 5e-3, deadline 60 s, queue 4n, capacity n, x0 drifting by
+              U(-0.5, 0.5) K a round; the launch counters reset just
+              before and read just after the whole phase. f32, a sync
+              then a pipelined plane (the latter under a 60 s watchdog):
+              solves/s, p50/p99 warm round ms, mean round ms of each,
+              cold and cached join ms, cache hits and misses, sheds;
+              gates: every result an actuated finite solve or shed by
+              deadline or queue only, 0 engines built after round 0, no
+              round timed out. The sync plane's checkpoint after round 8
+              restored into a fresh plane sharing its cache: every join a
+              cache hit, the state bitwise, rounds 9-15 the uninterrupted
+              plane's u0 bitwise. f64: ``churn_schedule(0, 16, 8)`` on the
+              card against the same run in f64 on the CPU (a reference
+              subprocess from the script's start): equal actions, u0
+              within 1e-6 W. A profiled warm round gives the busy share.
+19. module_one_room — the module path: ``LocalMAS`` over the two-agent
               one-room MAS of ``tests/test_mas_one_room.py``
               (``agentlib_mpc_torch/reference_configs.py``; the ``mpc``
               module on the ``jax`` backend, N=15, degree-2 Legendre
@@ -149,7 +169,7 @@ non-zero without printing a result:
               first and median warm solve, the simulator's time, a profiled
               solve; quality: the same MAS in f64 on the CPU with the plain
               LDLᵀ, comfort error (AIE) and cooling energy within 1 %.
-19. module_linear_qp — ``examples/linear_qp_mpc.py``'s agent the same way
+20. module_linear_qp — ``examples/linear_qp_mpc.py``'s agent the same way
               (N=8, KKT 74) on the QP fast path, in f64 on the card: the
               float64 kernels, only at (1, 74), one factor and six solves
               per QP iteration; every solve successful with the guard at
@@ -160,7 +180,7 @@ non-zero without printing a result:
               the CPU is reported beside it. (In f32 the pivot-free LDLᵀ
               breaks down on this QP in both packages:
               ``scripts/linear_qp_f32_witness.py``.)
-20. module_mhe — ``examples/mhe_one_room.py``'s two agents for 1 800 s
+21. module_mhe — ``examples/mhe_one_room.py``'s two agents for 1 800 s
               (cut from the example's 3 600 s for the script's time
               limit) in f32 on the card (the module path's default): the
               ``mhe`` module (``jax_mhe``, horizon 10, its estimation OCP
@@ -175,7 +195,7 @@ non-zero without printing a result:
               port's solver counted steps taken only inside the line
               search's noise allowance as no progress, its MPC failed 3
               of 31 solves here in f32: ``scripts/module_f32_witness.py``.)
-21. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
+22. module_minlp_cia — ``examples/minlp_switched_room.py``'s ``jax_cia``
               agent for 1 800 s in f64 (a quarter of the example's run,
               for the script's time limit): the relaxed program on the QP at
               (1, 34), the CIA schedule from the native library
@@ -188,8 +208,9 @@ non-zero without printing a result:
               from the same inputs and warm state (a subprocess): the same
               command and relaxed-QP iterations, the relaxed trajectory
               within 1e-6 K.
-22. module_minlp_bb — the same agent on ``jax_minlp_bb`` (max_nodes 16,
-              cut from the example's 48 when the scenario phases came;
+23. module_minlp_bb — the same agent on ``jax_minlp_bb`` (max_nodes 8,
+              cut from the example's 48 to 16 when the scenario phases
+              came and to 8 when the serve phase came;
               batch_pairs 4) for 2 100 s in f64: node relaxations as one
               batched NLP per sweep at (8, 34), exact launches per fixed
               solve and per sweep, the example's gates, on every step the
@@ -198,7 +219,7 @@ non-zero without printing a result:
               step in the line). module_one_room, module_linear_qp,
               module_mhe, module_admm and module_admm_exchange each have a
               ``*_profile`` line.
-23. module_admm — ``examples/admm_cooled_room.py``'s three agents for
+24. module_admm — ``examples/admm_cooled_room.py``'s three agents for
               600 s in f32 (two control steps, for the script's time
               limit): the room and the cooler as ``admm_local``
               modules over ``jax_admm``, whose augmented problems route by
@@ -213,7 +234,7 @@ non-zero without printing a result:
               other at the last step's last iteration, the gap printed per
               step), the final temperature within 0.02 K of the same loop
               in f64 on the CPU.
-24. module_admm_rt — ``tests/test_admm_realtime.py``'s pair of real-time
+25. module_admm_rt — ``tests/test_admm_realtime.py``'s pair of real-time
               ``admm`` modules (N=4, a step every 8 s) on the wall clock
               for 10 s of the MAS's clock in f64 (in f32 the room's solves
               fail on the pivot-free LDLᵀ in both packages:
@@ -225,7 +246,7 @@ non-zero without printing a result:
               worker thread on the default stream, the room's mean air flow
               finite with shape (4,), no worker alive afterwards, and the
               launches exact per iteration over both threads.
-25. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
+26. module_admm_coord — ``examples/admm_4rooms_coordinator.py``'s ten
               agents for 300 s (one round; two until the fleet phases
               came), 6 ADMM iterations (the example's 15, cut to 8 when
               the ML phases came and to 6 when the scenario phases
@@ -246,7 +267,7 @@ non-zero without printing a result:
               0.01 K and mean flow within 1e-5 m³/s of the CPU's; the
               allocation order (room 4's mean flow above room 1's) printed
               with its margin; per round the residual trails and rho.
-26. module_admm_exchange — ``examples/exchange_admm_4rooms.py``'s nine
+27. module_admm_exchange — ``examples/exchange_admm_4rooms.py``'s nine
               agents for 300 s (one step) in f32: four ``ExchangeRoom``
               agents (NLP at (1, 74), 1:3) and the supplier (QP at (1, 8),
               1:6) as ``admm_local`` modules on one exchange alias; every
@@ -259,7 +280,7 @@ non-zero without printing a result:
               room's final temperature within 0.01 K and the supplier's
               flow within 1e-4 m³/s of the same loop in f64 on the CPU; a
               profiled room solve.
-27. module_ml_mpc — ``examples/ml_mpc_one_room.py`` through the port: the
+28. module_ml_mpc — ``examples/ml_mpc_one_room.py`` through the port: the
               example's 500 seeded plant steps train its ANN NARX
               surrogate (hidden (16, 16), 300 epochs, lr 3e-3) on the card
               in f64 with ``ANNTrainerCore``; a CPU f64 training of the same
@@ -275,7 +296,7 @@ non-zero without printing a result:
               factor and three solves per iteration); cold and warm solve
               ms, training seconds and a profiled warm solve (``ml.predict``
               inside ``ipm.eval_jac``).
-28. module_ml_admm — ``examples/three_zone_datadriven_admm.py``'s seven
+29. module_ml_admm — ``examples/three_zone_datadriven_admm.py``'s seven
               agents through LocalMAS for one control step (300 s) in f64:
               three ``ZoneSurrogate`` zones on ``jax_admm_ml`` (HORIZON 8,
               ``max_iter`` 60) and the physical AHU on ``jax_admm``, 8 ADMM
@@ -288,7 +309,7 @@ non-zero without printing a result:
               zones' coupling gap at the last iteration equal to the CPU's,
               each zone's first move within 1e-6 m³/s of the CPU's,
               launches exact.
-29. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
+30. module_fleet_mqtt — the deploy fleet (``deploy/fleet/*.json``, read as
               they are: coordinated ADMM, the CooledRoom with its plant,
               the Cooler) as three container processes on the card in
               f64, joined over a ``MiniBroker`` of the port in this
@@ -307,20 +328,20 @@ non-zero without printing a result:
               at the real-time pair's shapes in float64, the
               coordinator's CSV has its residual columns and the room's
               ADMM CSV loads through ``utils.analysis``.
-30. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
+31. module_fleet_mp — the same four agents through ``MultiProcessingMAS``
               (one ``spawn``ed process each on its TCP relay, device
               ``cuda``, f64, real time at factor 1.0); each child's
               launch counts and solves are written at its exit by the
               ``bootstrap`` hook (:func:`fleet_child_bootstrap`): results
               from all four agents, at least two rounds, every solve
               successful, launches exact.
-31. path_shapes — every (B, M) a path launched, in each type it launched
+32. path_shapes — every (B, M) a path launched, in each type it launched
               in, is held bitwise against the plain versions; a shape no
               earlier phase timed gets its device time, bound, plain and
               library times.
 
 The f64 CPU references of the slice, qp_slice, fused_slice,
-fused_linear and scenario_ab paths and of the module phases run in subprocesses of this
+fused_linear, scenario_ab and serve paths and of the module phases run in subprocesses of this
 script (``--cpu-reference NAME``) started at the beginning, beside the
 card's phases (the module phases' at a lower scheduling priority), and are
 ended with the script; they and the replays of the linear-QP and CIA
@@ -336,6 +357,7 @@ package or of ``bench.py``.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import pickle
@@ -572,9 +594,10 @@ MINLP_CIA_REPLAY_TOL_K = 1e-6
 #: explored 9-52 nodes and proved 6 of 8 incumbents optimal (the phase's
 #: bb_nodes and bb_proven_optimal); at 16 a step stops after its sweep
 #: that passes 16 nodes, and what it proves and how its incumbent compares
-#: with the rounding heuristic's are in the same line
+#: with the rounding heuristic's are in the same line. Cut again to 8 when
+#: the serve phase came, for the script's time limit
 MINLP_BB_UNTIL = 2100.0
-MINLP_BB_MAX_NODES = 16
+MINLP_BB_MAX_NODES = 8
 
 #: decentralized consensus ADMM on the module path: examples/admm_cooled_
 #: room.py's room and cooler (admm_local over jax_admm, N=8, 6 ADMM
@@ -2716,6 +2739,373 @@ def scenario_spread(fleet, state) -> float:
     return float((u - state.zbar[SCENARIO_ALIAS][None]).abs().max())
 
 
+#: the serving plane: bench.py --serve's workload (bench.py:
+#: 2188-2330), built from the port: LinearRCZone tenants coupled on
+#: ``power``, the slice's solver options, 5 ADMM iterations at ρ 5e-3,
+#: deadline 60 s, a queue of 4n, initial capacity n, x0 drifting by
+#: U(-0.5, 0.5) K per round, membership from churn_schedule(0, n, rounds)
+SERVE_SEED = 0
+SERVE_TENANTS = 256
+SERVE_ROUNDS = 16
+SERVE_DEADLINE_S = 60.0
+SERVE_ADMM_ITERATIONS = 5
+SERVE_RHO = 5e-3
+SERVE_D_ROW = (150.0, 303.15, 295.15)
+#: the sync plane's checkpoint is taken after this round; the restored
+#: plane serves the rounds after it and must give the uninterrupted
+#: plane's u0 bitwise
+SERVE_CKPT_ROUND = 8
+#: the f64 leg: churn_schedule(0, 16, 8) on the card against the same
+#: schedule in f64 on the CPU (a reference subprocess); equal actions,
+#: u0 within SERVE_F64_U_TOL_W watts
+SERVE_F64_TENANTS = 16
+SERVE_F64_ROUNDS = 8
+SERVE_F64_U_TOL_W = 1e-6
+#: the pipelined f32 leg runs under the watchdog; no round may time out
+SERVE_WATCHDOG_S = 60.0
+
+
+@functools.cache
+def serve_ocp():
+    """The tenants' one transcribed OCP object (one transcription per
+    process: the serving plane memoizes fingerprints per OCP object)."""
+    from agentlib_mpc_torch.parallel import admm_step
+
+    return admm_step.linear_zone_ocp()
+
+
+def serve_workload(torch, n: int, dtype):
+    """(make_spec, theta_for) of bench.py --serve's tenants in the port."""
+    from agentlib_mpc_torch.ops.solver import SolverOptions
+    from agentlib_mpc_torch.parallel import admm_step
+    from agentlib_mpc_torch.serving import TenantSpec
+
+    ocp = serve_ocp()
+    x0_base = {f"t{i:03d}": 294.0 + 6.0 * i / max(n - 1, 1)
+               for i in range(n)}
+    d_traj = torch.tensor(SERVE_D_ROW, dtype=dtype).expand(ocp.N, 3)
+    base = ocp.default_params(device="cpu", dtype=dtype)
+
+    def theta_for(tid, drift=0.0):
+        return base._replace(
+            x0=torch.tensor([x0_base[tid] + drift], dtype=dtype),
+            d_traj=d_traj.clone())
+
+    def make_spec(tid):
+        return TenantSpec(
+            tenant_id=tid, ocp=ocp, theta=theta_for(tid),
+            couplings={"power": "Q"},
+            solver_options=SolverOptions(**admm_step.SOLVER_BASE),
+            deadline_s=SERVE_DEADLINE_S)
+
+    return make_spec, theta_for
+
+
+def serve_plane(torch, n: int, dev, dtype, pipelined: bool,
+                cache=None, watchdog_s=None):
+    from agentlib_mpc_torch.parallel.fused_admm import FusedADMMOptions
+    from agentlib_mpc_torch.serving import ServingPlane
+
+    return ServingPlane(
+        FusedADMMOptions(max_iterations=SERVE_ADMM_ITERATIONS,
+                         rho=SERVE_RHO),
+        initial_capacity=n, pipelined=pipelined, donate=pipelined,
+        queue_limit=4 * n, cache=cache, watchdog_timeout_s=watchdog_s,
+        device=dev, dtype=dtype)
+
+
+def serve_run(torch, n: int, rounds: int, dev, dtype, pipelined: bool,
+              sync, watchdog_s=None, ckpt_dir=None, plane=None,
+              start=0, drifts=None) -> dict:
+    """bench.py --serve's loop on one plane: round ``start`` to
+    ``rounds - 1`` of churn_schedule(SERVE_SEED, n, rounds), every member
+    submitting its drifted theta, one serve_round each. Per round the
+    wall ms and the delivered results ``{tid: [action, u0]}``; the joins'
+    latencies by cache outcome; the drifts drawn (``drifts`` replays
+    recorded ones); with ``ckpt_dir``, the plane's checkpoint after round
+    SERVE_CKPT_ROUND and its state's host copy."""
+    import random
+
+    from agentlib_mpc_torch.resilience.chaos import churn_schedule
+
+    schedule = churn_schedule(SERVE_SEED, n, rounds)
+    make_spec, theta_for = serve_workload(torch, n, dtype)
+    rng = random.Random(f"bench-serve:{SERVE_SEED}")
+    if plane is None:
+        plane = serve_plane(torch, n, dev, dtype, pipelined,
+                            watchdog_s=watchdog_s)
+    drifts = {} if drifts is None else drifts
+    joins = {"cold": [], "cached": []}
+    walls, results, misses0 = [], [], None
+    ckpt = None
+    for r in range(start, rounds):
+        for kind, tid in schedule[r]:
+            if kind == "join":
+                rec = plane.join(make_spec(tid))
+                joins["cached" if rec.engine_cached
+                      else "cold"].append(rec.latency_s)
+            elif tid in plane.tenants:
+                plane.leave(tid)
+        for tid in plane.tenants:
+            if (r, tid) not in drifts:
+                drifts[(r, tid)] = rng.uniform(-0.5, 0.5)
+            plane.submit(tid, theta=theta_for(tid, drifts[(r, tid)]))
+        t0 = time.perf_counter()
+        res = plane.serve_round()
+        walls.append(time.perf_counter() - t0)
+        results.append(serve_results(res))
+        if r == start:
+            misses0 = plane.cache.misses
+        if ckpt_dir is not None and r == SERVE_CKPT_ROUND:
+            sync()
+            ckpt = {"path": plane.save_checkpoint(ckpt_dir),
+                    "state": {key.digest: tree_host(torch, b.state)
+                              for key, b in plane._buckets.items()}}
+    tail = serve_results(plane.flush())
+    sync()
+    delivered = sum(len(r) for r in results) + len(tail)
+    serving_s = float(np.sum(walls))
+    warm = np.asarray(walls[1:] if len(walls) > 1 else walls) * 1e3
+    return {"plane": plane, "joins": joins, "results": results,
+            "flushed": tail, "drifts": drifts, "ckpt": ckpt,
+            "delivered": delivered, "serving_s": serving_s,
+            "solves_per_sec": delivered / serving_s if serving_s else 0.0,
+            "round_ms": [w * 1e3 for w in walls],
+            "round_ms_mean": float(warm.mean()),
+            "round_ms_p50": float(np.percentile(warm, 50)),
+            "round_ms_p99": float(np.percentile(warm, 99)),
+            "engines_built_after_round0": plane.cache.misses - misses0}
+
+
+def serve_results(res) -> dict:
+    """``{tid: [action, u0 or None, reasons, stats success]}``."""
+    return {tid: [r.action,
+                  None if r.action != "actuate" or not r.controls
+                  else float(r.controls["Q"]),
+                  list(r.reasons),
+                  None if r.stats is None else r.stats.get("success")]
+            for tid, r in res.items()}
+
+
+def tree_host(torch, tree):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().clone()
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def check_serve_results(name, run):
+    """Every delivered result actuated a finite solve, or was shed by the
+    deadline or the queue only."""
+    allowed = {"shed_deadline", "shed_overload"}
+    bad = []
+    for r, res in enumerate([*run["results"], run["flushed"]]):
+        for tid, (action, u0, reasons, success) in res.items():
+            if action == "actuate":
+                if u0 is None or not np.isfinite(u0) or success is False:
+                    bad.append((r, tid, "non-finite"))
+            elif not set(reasons) <= allowed:
+                bad.append((r, tid, reasons))
+    check(not bad, f"{name}: results neither finite nor shed by deadline "
+                   f"or queue: {bad[:5]}")
+    return sum(1 for res in run["results"] for v in res.values()
+               if v[0] != "actuate")
+
+
+def serve_summary(run) -> dict:
+    stats = run["plane"].stats()
+    join_ms = lambda v: 1e3 * float(np.mean(v)) if v else None
+    return {"solves_per_sec": run["solves_per_sec"],
+            "delivered": run["delivered"],
+            "round_ms_p50": run["round_ms_p50"],
+            "round_ms_p99": run["round_ms_p99"],
+            "round_ms_mean": run["round_ms_mean"],
+            "round_ms": run["round_ms"],
+            "join_cold_ms": join_ms(run["joins"]["cold"]),
+            "join_cached_ms": join_ms(run["joins"]["cached"]),
+            "joins": {k: len(v) for k, v in run["joins"].items()},
+            "cache": stats["cache"], "queue": stats["queue"],
+            "watchdog": stats["watchdog"],
+            "engines_built_after_round0":
+                run["engines_built_after_round0"]}
+
+
+def serve_reference(torch) -> dict:
+    """The f64 leg's schedule on the CPU in f64 (sync plane): per round
+    the delivered results."""
+    t0 = time.perf_counter()
+    run = serve_run(torch, SERVE_F64_TENANTS, SERVE_F64_ROUNDS, "cpu",
+                    torch.float64, False, lambda: None)
+    return {"seconds": time.perf_counter() - t0,
+            "results": run["results"]}
+
+
+def phase_serve(torch, dev, smi, ref):
+    """The serving plane on the card (bench.py --serve's workload): the
+    f32 legs sync then pipelined under the watchdog, a crash and restore
+    of the sync plane's checkpoint, the f64 leg against the CPU, and a
+    profiled warm round."""
+    import tempfile
+
+    from torch.utils._pytree import tree_flatten
+
+    from agentlib_mpc_torch.ops import kkt
+    from agentlib_mpc_torch.resilience.chaos import churn_schedule
+    from agentlib_mpc_torch.serving.checkpoint import (
+        plane_checkpoint_topology)
+
+    sync = torch.cuda.synchronize
+    n = SERVE_TENANTS
+    torch.cuda.reset_peak_memory_stats(dev)
+    kkt.reset_launch_counts()
+    tmp = tempfile.TemporaryDirectory(prefix="serve_ckpt_")
+    t0 = time.perf_counter()
+    run_sync = serve_run(torch, n, SERVE_ROUNDS, dev, torch.float32, False,
+                         sync, ckpt_dir=f"{tmp.name}/plane")
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_pipe = serve_run(torch, n, SERVE_ROUNDS, dev, torch.float32, True,
+                         sync, watchdog_s=SERVE_WATCHDOG_S)
+    pipe_s = time.perf_counter() - t0
+    legs = {}
+    for name, run in (("sync", run_sync), ("pipelined", run_pipe)):
+        sheds = check_serve_results(f"serve {name}", run)
+        check(run["engines_built_after_round0"] == 0,
+              f"serve {name}: {run['engines_built_after_round0']} engines "
+              f"built after round 0")
+        legs[name] = {**serve_summary(run), "not_actuated": sheds}
+    check(run_pipe["plane"].dispatcher.pipelined
+          and run_pipe["plane"].dispatcher.stalls == 0,
+          f"serve pipelined: the watchdog fired "
+          f"({run_pipe['plane'].dispatcher.stalls} stalls)")
+    check(not run_sync["plane"].dispatcher.pipelined,
+          "serve sync: the sync plane must not pipeline")
+
+    # crash and restore: a fresh plane sharing the sync plane's cache
+    ckpt = run_sync["ckpt"]
+    fresh = serve_plane(torch, n, dev, torch.float32, False,
+                        cache=run_sync["plane"].cache)
+    make_spec, _ = serve_workload(torch, n, torch.float32)
+    sched = churn_schedule(SERVE_SEED, n, SERVE_ROUNDS)
+    members: set = set()
+    for r in range(SERVE_CKPT_ROUND + 1):
+        for kind, tid in sched[r]:
+            (members.add if kind == "join" else members.discard)(tid)
+    specs = {tid: make_spec(tid) for tid in members}
+    topology = plane_checkpoint_topology(ckpt["path"])
+    t0 = time.perf_counter()
+    report = fresh.restore_checkpoint(ckpt["path"], specs)
+    sync()
+    restore_s = time.perf_counter() - t0
+    check(report.cold_builds == 0 and report.cache_hits == len(members),
+          f"serve restore: {report.cold_builds} cold builds, "
+          f"{report.cache_hits} cache hits for {len(members)} tenants")
+    state_diff = 0.0
+    for key, bucket in fresh._buckets.items():
+        saved = ckpt["state"][key.digest]
+        for a, b in zip(tree_flatten(saved)[0],
+                        tree_flatten(tree_host(torch, bucket.state))[0]):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  "serve restore: state leaf shape or dtype differs")
+            d = (a.double() - b.double()).abs()
+            state_diff = max(state_diff, float(d.max()) if d.numel()
+                             else 0.0)
+    check(state_diff == 0.0,
+          f"serve restore: restored state differs by {state_diff}")
+    t0 = time.perf_counter()
+    resumed = serve_run(torch, n, SERVE_ROUNDS, dev, torch.float32, False,
+                        sync, plane=fresh, start=SERVE_CKPT_ROUND + 1,
+                        drifts=run_sync["drifts"])
+    resumed_s = time.perf_counter() - t0
+    u_diff, action_diff = 0.0, []
+    for k, res in enumerate(resumed["results"]):
+        r = SERVE_CKPT_ROUND + 1 + k
+        want = run_sync["results"][r]
+        check(set(res) == set(want),
+              f"serve restore round {r}: other tenants delivered")
+        for tid, (action, u0, _reasons, _ok) in res.items():
+            if action != want[tid][0]:
+                action_diff.append((r, tid, action, want[tid][0]))
+            elif u0 is not None:
+                u_diff = max(u_diff, abs(u0 - want[tid][1]))
+    check(not action_diff, f"serve restore: actions differ {action_diff[:5]}")
+    check(u_diff == 0.0,
+          f"serve restore: resumed rounds' u0 differ by {u_diff} W from "
+          f"the uninterrupted plane's")
+    tmp.cleanup()
+
+    # the f64 leg, against the CPU's f64 run of the same schedule
+    f32_launches = (kkt.ldl_factor.launches, kkt.ldl_solve.launches)
+    t0 = time.perf_counter()
+    run64 = serve_run(torch, SERVE_F64_TENANTS, SERVE_F64_ROUNDS, dev,
+                      torch.float64, False, sync)
+    f64_s = time.perf_counter() - t0
+    check_serve_results("serve f64", run64)
+    check(len(run64["results"]) == len(ref["results"]) == SERVE_F64_ROUNDS,
+          "serve f64: the card's and the CPU's runs differ in rounds")
+    f64_u, f64_actions = 0.0, []
+    for r, (card, cpu) in enumerate(zip(run64["results"], ref["results"])):
+        check(set(card) == set(cpu), f"serve f64 round {r}: other tenants")
+        for tid, (action, u0, _reasons, _ok) in card.items():
+            if action != cpu[tid][0]:
+                f64_actions.append((r, tid, action, cpu[tid][0]))
+            elif u0 is not None:
+                f64_u = max(f64_u, abs(u0 - cpu[tid][1]))
+    check(not f64_actions, f"serve f64: actions differ from the CPU's "
+                           f"{f64_actions[:5]}")
+    check(f64_u <= SERVE_F64_U_TOL_W,
+          f"serve f64: u0 {f64_u} W from the CPU's (tolerance "
+          f"{SERVE_F64_U_TOL_W} W)")
+    totals = launch_totals(kkt)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # one more warm round of the sync plane under the profiler
+    plane = run_sync["plane"]
+    _, theta_for = serve_workload(torch, n, torch.float32)
+
+    def one_round():
+        for tid in plane.tenants:
+            plane.submit(tid, theta=theta_for(tid))
+        plane.serve_round()
+
+    t0 = time.perf_counter()
+    profile = phase_profile(torch, one_round,
+                            legs["sync"]["round_ms_p50"],
+                            name="serve_profile")
+    profile_s = time.perf_counter() - t0
+    emit({"phase": "serve", "tenants": n, "rounds": SERVE_ROUNDS,
+          "seed": SERVE_SEED, "dtype": "float32",
+          "admm_iterations": SERVE_ADMM_ITERATIONS,
+          "legs": legs,
+          "dispatch_overhead_saved_ms":
+              legs["sync"]["round_ms_mean"]
+              - legs["pipelined"]["round_ms_mean"],
+          "leg_seconds": {"sync": sync_s, "pipelined": pipe_s,
+                          "restore": restore_s, "resumed": resumed_s,
+                          "f64": f64_s, "profile": profile_s},
+          "restore": {"after_round": SERVE_CKPT_ROUND,
+                      "tenants": len(report.tenants),
+                      "cold_builds": report.cold_builds,
+                      "cache_hits": report.cache_hits,
+                      "requeued": report.requeued,
+                      "restore_ms": report.total_s * 1e3,
+                      "state_max_abs_diff": state_diff,
+                      "resumed_rounds": len(resumed["results"]),
+                      "u0_max_abs_diff_w": u_diff,
+                      "topology": topology},
+          "f64": {"tenants": SERVE_F64_TENANTS, "rounds": SERVE_F64_ROUNDS,
+                  "u0_max_abs_diff_w": f64_u, "tol_w": SERVE_F64_U_TOL_W,
+                  "cpu_seconds": ref["seconds"],
+                  **{k: v for k, v in serve_summary(run64).items()
+                     if k in ("solves_per_sec", "round_ms_mean",
+                              "delivered", "cache")}},
+          "launches": totals, "launches_f32_legs": f32_launches,
+          "peak_memory_bytes": peak,
+          "busy_share": profile["busy_share_of_median_warm_step"],
+          "nvidia_smi": smi})
+    return totals
+
+
 def drive_mas(torch, configs, dev, dtype, until, mpc_at, sim_at,
               count_launches: bool, capture: bool = False, extra_at=(),
               instrument=None):
@@ -2962,6 +3352,8 @@ def reference_run(name: str) -> dict:
 
     if name == "scenario_ab":
         return scenario_ab_reference(torch)
+    if name == "serve":
+        return serve_reference(torch)
     if name in ("module_ml_mpc", "module_ml_admm"):
         return ml_reference(name)
 
@@ -4731,7 +5123,7 @@ def main() -> int:
     torch.set_num_threads(len(main_cores))
     cores = {"card_process": main_cores, "cpu_subprocesses": ref_cores}
     refs = References(["quality", "qp_quality", "fused_slice",
-                       "fused_linear", "scenario_ab"],
+                       "fused_linear", "scenario_ab", "serve"],
                       list(reference_specs()), ref_cores)
     try:
         return run_phases(torch, dev, refs, seconds, t_start, cores)
@@ -4779,6 +5171,8 @@ def run_phases(torch, dev, refs, seconds, t_start, cores) -> int:
                                    dev, smi, refs.get("scenario_ab"))
     by_path["scenario_fleet"] = timed("scenario_fleet", phase_scenario_fleet,
                                       torch, dev, smi)
+    by_path["serve"] = timed("serve", phase_serve, torch, dev, smi,
+                             refs.get("serve"))
     # the data-driven phases' references (their trainings and loops)
     # start once the fleet paths, the ones the CPU references slow most,
     # are done

@@ -395,8 +395,11 @@ def test_deferred_backend_features_name_their_item(one_room):
     from agentlib_mpc_torch.scenario import ScenarioFleet, fan_tree
 
     backend = one_room["port"]["module"].backend
-    with pytest.raises(NotImplementedError, match="item 5"):
-        backend.problem_fingerprint()
+    # the serving slice brought the fingerprint: a memoized structural
+    # fingerprint of the backend's transcribed problem
+    fp = backend.problem_fingerprint()
+    assert fp.digest and fp.n_w == backend.ocp.n_w
+    assert backend.problem_fingerprint() is fp
     # the scenario helpers (item 4) came with the scenario-tree slice: one
     # cached engine per structure, device and dtype
     tree = fan_tree(2, robust_horizon=1)
